@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/, checks each kernel against its
+plain PyTorch version on the card at the receive chain's bench shapes,
+then drives the main path (``models.pipeline.receive_block``) on a
+128-channel, 250 ksps block synthesized on the card, in the clean
+(noise_std 2500) and mid (noise_std 50000) regimes, and checks the
+decoded frames against the transmitted ones.  Fails (non-zero exit, no
+result line) without a CUDA device, on a build error, or when any check
+fails.  Imports no JAX.
+
+Output, in order: one line per phase; the card's name and power limit
+(nvidia-smi); one JSON line with every kernel's launches on the main
+path, its error against the plain version and both times; last, the
+JSON line {"ok": true, "device": {...}}.  Phases 3 and 4 each end
+with a profile line: per-stage milliseconds of three receive_block
+runs, and the device busy time of one run under torch.profiler.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PKG = "isee3_decoder_tpu_torch"
+
+# bench configuration (the JAX package's bench.py)
+SAMPRATE = 250_000.0
+SYMRATE = 1024.0
+NCHAN = 128
+NFRAMES_TX = 4
+NOISE_CLEAN = 2500.0
+NOISE_MID = 50000.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of fn over reps calls (after one warm
+    call), timed with CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int):
+    """(frames (F, 128) uint8, (nchan, 2*nsamples) int16 raw IQ on dev):
+    the same frames on every channel, carriers 20 kHz + 137 Hz·i."""
+    import torch
+
+    from isee3_decoder_tpu_torch.utils.devicesignal import (
+        random_frames,
+        synthesize_iq_device,
+        to_raw_int16,
+    )
+
+    frames = random_frames(np.random.default_rng(0), NFRAMES_TX)
+    frames_dev = torch.as_tensor(
+        np.ascontiguousarray(np.broadcast_to(frames, (nchan, *frames.shape))),
+        device=dev,
+    )
+    carriers = torch.as_tensor(20_000.0 + 137.0 * np.arange(nchan),
+                               dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    iq = synthesize_iq_device(frames_dev, carriers, gen, nsamples,
+                              samprate=SAMPRATE, symrate=SYMRATE,
+                              noise_std=noise_std)
+    return frames, to_raw_int16(iq), carriers
+
+
+def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
+    """Phase 2: every kernel against its plain version on the same
+    inputs, at the main path's shapes.  Returns per-kernel records."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import FRAMEBITS, SYNC_STATE
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig, _tail
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
+    from isee3_decoder_tpu_torch.ops import prefix_cuda
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.ops.fano import FanoParams, _walk_inputs
+
+    out = {}
+    cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
+    n = cfg.fftsize
+    _, raw, carriers = bench_block(dev, nchan, n, NOISE_CLEAN, seed=5)
+    packed = carrier.pack_raw(raw)
+
+    # ---- K1: locked pm block (tolerances of tests/test_carrier_raw.py)
+    carry = carrier.PMCarry(search_center=carriers,
+                            cn0=torch.full_like(carriers, 60.0))
+    require(carrier._fast_search_ok(carry, cfg), "K1 inputs not locked")
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    K = carrier._window_bins(cfg)
+    args = (packed, first - 1, last - first, K, cfg.samprate,
+            cfg.actual_binsize)
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
+    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
+    pk_k = torch.round(f_k / cfg.actual_binsize)
+    pk_p = torch.round(f_p / cfg.actual_binsize)
+    err = int((bb_k.int() - bb_p.int()).abs().max())
+    log(f"  K1 pm_locked: peak bins equal {bool((pk_k == pk_p).all())}, "
+        f"max |dfreq| {float((f_k - f_p).abs().max()):.3e} Hz, "
+        f"max amp rel {float(((a_k - a_p) / a_p).abs().max()):.3e}, "
+        f"max |dcn0| {float((c_k - c_p).abs().max()):.3e} dB, "
+        f"max |dbaseband| {err} LSB")
+    require(bool((pk_k == pk_p).all()), "K1 peak bins differ")
+    require(float((f_k - f_p).abs().max()) <= 5e-3, "K1 freq off")
+    require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K1 amp off")
+    require(float((c_k - c_p).abs().max()) <= 1e-2, "K1 cn0 off")
+    require(err <= 1, "K1 baseband off by more than 1 LSB")
+    out["pm_locked"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: carrier_cuda.pm_locked_fused(*args), 20),
+        plain_ms=cuda_ms(lambda: carrier_cuda.pm_locked_plain(*args), 5),
+    )
+
+    # ---- K2: spin-down at a given carrier
+    f = carriers + 0.125
+    bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, cfg.samprate)
+    bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, cfg.samprate)
+    err = int((bb_k.int() - bb_p.int()).abs().max())
+    log(f"  K2 spin_down: max amp rel "
+        f"{float(((a_k - a_p) / a_p).abs().max()):.3e}, max |dcn0| "
+        f"{float((c_k - c_p).abs().max()):.3e} dB, max |dbaseband| {err} LSB")
+    require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K2 amp off")
+    require(float((c_k - c_p).abs().max()) <= 1e-2, "K2 cn0 off")
+    require(err <= 1, "K2 baseband off by more than 1 LSB")
+    out["spin_down"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: carrier_cuda.spin_down_fused(packed, f,
+                                                        cfg.samprate), 20),
+        plain_ms=cuda_ms(lambda: carrier_cuda.spin_down_plain(
+            packed, f, cfg.samprate), 5),
+    )
+    del packed, raw
+
+    # ---- K3: prefix sum, exact, at T=32 blocks (8.4 s of signal)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bb = torch.randint(-32768, 32768, (32, nchan, n), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int16)
+    cs_k = prefix_cuda.prefix_sum_blocks(bb, tail=1)
+    cs_p = prefix_cuda.prefix_sum_blocks_plain(bb, tail=1)
+    err = int((cs_k.long() - cs_p.long()).abs().max())
+    log(f"  K3 prefix_sum: {tuple(cs_k.shape)} max |diff| {err}")
+    require(err == 0, "K3 prefix sum not exact")
+    out["prefix_sum"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks(bb, tail=1), 10),
+        plain_ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks_plain(bb, 1), 3),
+    )
+    del bb, cs_k, cs_p
+
+    # ---- K4: the Fano walk alone — metric precompute and root setup are
+    # done once, outside the timed calls; bits and [np, gamma, cycles, t]
+    # exact
+    dcfg = DecodeConfig()
+    mettab = torch.as_tensor(dcfg.mettab(), device=dev)
+    rng = np.random.default_rng(4)
+
+    def walk_inputs(lanes: int, sigma: float):
+        from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+        data = torch.as_tensor(random_frames(rng, lanes), device=dev)
+        syms, _ = encode_bits(bytes_to_bits(data), SYNC_STATE, dcfg.code)
+        noise = torch.as_tensor(rng.normal(0.0, sigma, syms.shape),
+                                dtype=torch.float32, device=dev)
+        soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise)
+                           + 128, 0, 255).to(torch.uint8)
+        return _walk_inputs(soft, mettab, FRAMEBITS, SYNC_STATE,
+                            _tail(dcfg.code), dcfg.code, None)
+
+    plain_fano_ms = 0.0
+    cases = ((walk_inputs(n_lanes, 75.0), dcfg.fano_params_tier1()),
+             (walk_inputs(16, 110.0), FanoParams(dcfg.fano_delta, 2)))
+    for (m4, regs), params in cases:
+        args = (m4, regs, dcfg.code, params.delta, params.maxcycles)
+        bits_k, st_k = fano_cuda.fano_walk(*args)
+        start, end = _events()
+        start.record()
+        bits_p, st_p = fano_cuda.fano_walk_plain(*args)  # slow: timed once
+        end.record()
+        torch.cuda.synchronize()
+        if m4.shape[0] == n_lanes:
+            plain_fano_ms = start.elapsed_time(end)
+        require(torch.equal(bits_k, bits_p), "K4 bits differ")
+        require(torch.equal(st_k, st_p), "K4 np/gamma/cycles/t differ")
+        nfail = int((st_k[:, 0] + 1 != FRAMEBITS).sum())
+        log(f"  K4 fano_walk: {m4.shape[0]} lanes at {params.maxcycles} "
+            f"cycles/bit: identical; {nfail} timed out, max cycles "
+            f"{int(st_k[:, 2].max())}")
+        if m4.shape[0] == 16:
+            require(nfail > 0, "K4 small batch has no timed-out lane")
+    (m4, regs), params = cases[0]
+    out["fano_walk"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: fano_cuda.fano_walk(
+            m4, regs, dcfg.code, params.delta, params.maxcycles), 5),
+        plain_ms=plain_fano_ms,
+    )
+    return out
+
+
+def _events():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def timed_receive(iq, nframes: int, cfg):
+    """The main path: launch counts are set to 0 just before the counted
+    receive_block run and read just after; four more runs are timed.
+    Returns (record, [seconds of each run], launches, backends)."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.pipeline import receive_block
+
+    times = []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for i in range(5):
+        t0 = time.perf_counter()
+        rec, _ = receive_block(iq, nframes, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(_kernels.LAUNCHES)
+            backends = dict(_kernels.backend_used)
+    return rec, times, launches, backends
+
+
+def _ms(times) -> str:
+    return "/".join(f"{t * 1e3:.1f}" for t in times)
+
+
+def stage_ms(iq, nframes: int, cfg) -> dict:
+    """Wall milliseconds of each stage of one receive_block, called one
+    by one as pipeline._demod and receive_block call them, with a
+    synchronize after each."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
+    from isee3_decoder_tpu_torch.models.decode import _finish, decode_block_device
+    from isee3_decoder_tpu_torch.models.symdemod import (
+        initial_firstsample,
+        symdemod_scan_csum,
+        window_samples,
+    )
+    from isee3_decoder_tpu_torch.ops.carrier import init_carry, pm_demod_scan
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
+
+    B, n = iq.shape[0], cfg.pm.fftsize
+    nblocks = iq.shape[1] // (2 * n)
+    blocks = iq[:, : nblocks * 2 * n].reshape(B, nblocks, 2 * n)
+    nwindows = max((nblocks * n - initial_firstsample(cfg.sym))
+                   // window_samples(cfg.sym) - 1, 0)
+    out = {}
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = round((now - t[0]) * 1e3, 3)
+        t[0] = now
+
+    _, pm_out = pm_demod_scan(init_carry(B, cfg.pm, device=iq.device), blocks,
+                              cfg.pm)
+    mark("pm_scan")
+    csum = prefix_sum_blocks(pm_out.baseband, tail=1)
+    mark("prefix_sum")
+    _, sym_out = symdemod_scan_csum(csum, cfg.sym, nwindows)
+    soft = sym_out.soft.transpose(0, 1).reshape(B, -1)
+    mark("symdemod")
+    buf = decode_block_device(soft, nframes, FRAMESYMBOLS, cfg.decode)
+    buf = buf.cpu().numpy()
+    mark("decode_device+fetch")
+    _finish(buf, soft, B, nframes, cfg.decode)
+    mark("host_tail")
+    return out
+
+
+def device_busy(fn) -> dict:
+    """One fn() under torch.profiler: wall ms, the union of the device's
+    busy intervals in ms, and the busiest device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    per_name: dict = {}
+    for s, e, name in spans:
+        if end is None or s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+        tot, cnt = per_name.get(name[:60], (0.0, 0))
+        per_name[name[:60]] = (tot + (e - s), cnt + 1)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": round(wall, 3), "device_busy_ms": round(busy / 1e3, 3),
+            "top_ms_count": [(k, round(v / 1e3, 3), c) for k, (v, c) in top]}
+
+
+def profile_block(iq, nframes: int, cfg, regime: str) -> None:
+    """Three stage breakdowns and one profiled receive_block."""
+    from isee3_decoder_tpu_torch.models.pipeline import receive_block
+
+    stages = [stage_ms(iq, nframes, cfg) for _ in range(3)]
+    prof = device_busy(lambda: receive_block(iq, nframes, cfg))
+    log("  profile " + json.dumps({"regime": regime, "stages_ms": stages,
+                                   **prof}))
+
+
+def frame_stats(rec, frames, nchan: int, nframes: int) -> tuple[int, int]:
+    data = rec.data.reshape(nchan, nframes, -1)
+    good = rec.good.reshape(nchan, nframes)
+    matched = sum(
+        1 for ch in range(nchan) for f in range(nframes)
+        if good[ch, f] and any(np.array_equal(data[ch, f], fr) for fr in frames)
+    )
+    return int(rec.good.sum()), matched
+
+
+def decoder_mix(rec) -> dict:
+    from isee3_decoder_tpu_torch.models import decode as d
+
+    names = {d.DECODER_NONE: "none", d.DECODER_VITERBI: "viterbi",
+             d.DECODER_FANO: "fano", d.DECODER_QUICKLOOK: "quicklook",
+             d.DECODER_QLEC: "qlec"}
+    vals, counts = np.unique(rec.decoder, return_counts=True)
+    return {names[int(v)]: int(c) for v, c in zip(vals, counts)}
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, PKG)):
+        print(f"chip_smoke: package {PKG}/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 1:
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, SYNCBITS
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        demod_to_symbols,
+        receive_block,
+    )
+    from isee3_decoder_tpu_torch.ops.carrier import PMConfig
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+    from isee3_decoder_tpu_torch.ops.syncword import find_sync
+
+    # ---- phase 1: build
+    t0 = time.perf_counter()
+    path = _kernels.build_library()
+    _kernels.lib()
+    log(f"phase 1 build: {path.name} nvcc {_kernels.last_build_seconds:.1f} s "
+        f"(phase {time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 2: kernels vs plain PyTorch on the card
+    t0 = time.perf_counter()
+    checks = check_kernels(dev)
+    log(f"phase 2 kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 3: main path, clean regime, 128 channels
+    seconds = (NFRAMES_TX * 2048 + 400) / SYMRATE
+    nsamples = int(seconds * SAMPRATE)
+    pm = PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
+    sym = SymConfig(samprate=SAMPRATE, symrate=SYMRATE)
+    cfg = PipelineConfig(pm=pm, sym=sym,
+                         decode=DecodeConfig(viterbi_enabled=False))
+    t0 = time.perf_counter()
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=0)
+    soft = demod_to_symbols(iq, cfg)[0]  # warm-up; frames available
+    ss, _ = find_sync(soft[:, : FRAMESYMBOLS + SYNCBITS], FRAMESYMBOLS)
+    nframes = int((soft.shape[1] - int(ss.max()) - SYNCBITS) // FRAMESYMBOLS)
+    require(nframes >= 1, "no whole frame in the block")
+    del soft
+    receive_block(iq, nframes, cfg)  # warm-up of the decode half
+    rec, t_clean, launches, backends = timed_receive(iq, nframes, cfg)
+    good, matched = frame_stats(rec, frames, NCHAN, nframes)
+    log(f"phase 3 clean: {NCHAN} ch x {nframes} frames, receive_block "
+        f"{_ms(t_clean)} ms (counted run, then 4 more); good {good}/{rec.good.size}, matched "
+        f"{matched}; decoders {decoder_mix(rec)}; launches {launches}; "
+        f"backend {backends} ({time.perf_counter() - t0:.1f} s)")
+    require(matched == rec.good.size, "clean regime: not every frame decoded")
+    for k in ("pm_locked", "spin_down", "prefix_sum"):
+        require(launches[k] > 0, f"clean regime: kernel {k} never launched")
+    require(backends.get("pm") == "cuda" and backends.get("csum") == "cuda",
+            "clean regime: pm / csum stage did not run on CUDA")
+    profile_block(iq, nframes, cfg, "clean")
+    del iq
+
+    # ---- phase 4: main path, mid regime
+    t0 = time.perf_counter()
+    mid = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig.strict_labels(
+        viterbi_enabled=False))
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_MID, seed=99)
+    # kernel path vs plain path on 8 channels; maxcycles lowered alike for
+    # both so the plain tier-2 walk stays short
+    small = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig.strict_labels(
+        viterbi_enabled=False, fano_maxcycles=40))
+    iq8 = iq[:8].contiguous()
+    rec_k, ss_k = receive_block(iq8, nframes, small)
+    with _kernels.plain_reference():
+        rec_p, ss_p = receive_block(iq8, nframes, small)
+    for field in ("data", "good", "decoder", "fano_cycles", "start_symbol"):
+        require(np.array_equal(getattr(rec_k, field), getattr(rec_p, field)),
+                f"mid regime 8 ch: kernel and plain paths differ in {field}")
+    require(np.array_equal(ss_k, ss_p), "mid regime 8 ch: sync differs")
+    log(f"  8 ch kernel path == plain path: decoders {decoder_mix(rec_k)}, "
+        f"cycles {rec_k.fano_cycles.tolist()}")
+    rec, t_mid, launches_mid, backends_mid = timed_receive(iq, nframes, mid)
+    for k, v in launches_mid.items():
+        launches[k] += v
+    good, matched = frame_stats(rec, frames, NCHAN, nframes)
+    log(f"phase 4 mid: {NCHAN} ch x {nframes} frames, receive_block "
+        f"{_ms(t_mid)} ms (counted run, then 4 more); good {good}/"
+        f"{rec.good.size}, matched {matched}; decoders {decoder_mix(rec)}; "
+        f"launches {launches_mid}; backend {backends_mid} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(launches_mid["fano_walk"] > 0, "mid regime: K4 never launched")
+    require(backends_mid.get("fano") == "cuda", "mid regime: Fano not on CUDA")
+    profile_block(iq, nframes, mid, "mid")
+    for k, v in launches.items():
+        require(v > 0, f"kernel {k} never launched on the main path")
+
+    src = f"{PKG}/csrc/"
+    meta = {
+        "pm_locked": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:687"),
+        "spin_down": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:214"),
+        "prefix_sum": ("prefix.cu", "isee3_decoder_tpu/ops/prefix_pallas.py:65"),
+        "fano_walk": ("fano.cu", "isee3_decoder_tpu/ops/fano_pallas.py:106"),
+    }
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": src + meta[name][0],
+            "replaces": meta[name][1],
+            "launches": launches[name],
+            "max_abs_err": checks[name]["max_abs_err"],
+            "ms": checks[name]["ms"],
+            "plain_ms": checks[name]["plain_ms"],
+        }
+        for name in ("pm_locked", "spin_down", "prefix_sum", "fano_walk")
+    ]
+    log(f"card: {card_line()}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,177 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch
+headers), so one ``nvcc`` call builds them into a shared library in a
+few seconds; ``ctypes`` binds it.  The library lands in
+``<repo>/build/torch_kernels/`` (git-ignored) under a name carrying a
+hash of the sources and flags, so an edited source rebuilds at the next
+first use and an unchanged one loads straight away.
+
+Each wrapper (ops/*_cuda.py) adds one to its kernel's launch count where
+it launches the kernel, and records per stage which backend ran
+(``backend_used``), so a run can show that its main path went through
+the kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+#: kernel name → launches since the last reset_launches()
+LAUNCHES: dict[str, int] = {
+    "pm_locked": 0,
+    "spin_down": 0,
+    "prefix_sum": 0,
+    "fano_walk": 0,
+}
+#: pipeline stage ("pm", "csum", "fano") → "cuda" or "torch", last run
+backend_used: dict[str, str] = {}
+
+_lib: ctypes.CDLL | None = None
+_plain_forced = False
+#: seconds build_library() spent in nvcc in this process (0.0: cached)
+last_build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
+_SIGNATURES = {
+    # packed, row_stride, iw, B, n, K, samprate, binsize, flip, dop,
+    # chirp, bb, stat, spec, cyc, mom, stream
+    "pm_locked_launch": (_P, _I, _P, _I, _I, _I, _F, _F, _I, _D, _P,
+                         _P, _P, _P, _P, _P, _P),
+    # packed, row_stride, cyc, B, n, samprate, flip, dop, bb, stat, mom,
+    # stream
+    "spin_down_launch": (_P, _I, _P, _I, _I, _F, _I, _D, _P, _P, _P, _P),
+    # blocks, T, B, n, tail, out, stream
+    "prefix_sum_launch": (_P, _I, _I, _I, _I, _P, _P),
+    # metrics4, regs, B, N, tail_start, kb, delta, max_total, poly1,
+    # poly2, g1flip, g2flip, tape, bits, stats, stream
+    "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P),
+}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    backend_used.clear()
+
+
+def note_backend(stage: str, backend: str) -> None:
+    backend_used[stage] = backend
+
+
+@contextlib.contextmanager
+def plain_reference():
+    """Run the plain PyTorch version of every kernel even on CUDA
+    tensors, for as long as the block lasts.  For verification only:
+    it lets a check run the same main path twice on the card — once
+    through the kernels, once through their plain versions — and
+    compare.  Nothing in the package enters it."""
+    global _plain_forced
+    prev = _plain_forced
+    _plain_forced = True
+    try:
+        yield
+    finally:
+        _plain_forced = prev
+
+
+def use_kernel(t) -> bool:
+    """True when ``t`` lives on a CUDA device and no plain_reference()
+    block is open: the wrapper must launch its kernel (or raise)."""
+    return t.is_cuda and not _plain_forced
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (pathlib.Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> pathlib.Path:
+    """Compile csrc/*.cu into the build directory unless a library for
+    the current sources already exists there; return its path."""
+    global last_build_seconds
+    lib_path = BUILD_DIR / f"libisee3_kernels_{_source_hash()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build_library()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,389 @@
+"""decode stage model: frame sync + tiered frame decoding (decode.c:42-289).
+
+The block decode runs on the device: sync search over a frame of
+positions, quicklook (error-free frames), QLEC (algebraic correction of
+scattered symbol errors) and the tier-1 Fano walk (kernel K4) at a
+cycles-per-bit cap, packed into one uint8 buffer so the host pays one
+fetch.  The host tail re-runs the lanes that ran out of cycles at the
+full budget (same walk, so outcomes equal one full-budget pass), then
+sends what is left to Viterbi under the reference policy
+(decode.c:209-214).  The Viterbi decoder is not ported yet: when a lane
+needs it and it is enabled, ``viterbi_fallback_inplace`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from isee3_decoder_tpu_torch.config import (
+    DEFAULT_CODE,
+    FRAMEBITS,
+    FRAMESYMBOLS,
+    SYNCBITS,
+    SYNCWORD,
+    SYNC_STATE,
+    CodeSpec,
+)
+from isee3_decoder_tpu_torch.ops.encode import bits_to_bytes, encode_bits
+from isee3_decoder_tpu_torch.ops.fano import FanoParams, fano_decode
+from isee3_decoder_tpu_torch.ops.syncword import find_sync, verify_frame
+from isee3_decoder_tpu_torch.utils.metrics import decoder_amplitudes, gen_met
+
+DECODER_NONE, DECODER_VITERBI, DECODER_FANO, DECODER_QUICKLOOK = 0, 1, 2, 3
+DECODER_QLEC = 4  # quicklook + algebraic error correction (middle tier)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Decode configuration (decode.c:65-73 defaults)."""
+
+    fano_enabled: bool = True
+    viterbi_enabled: bool = True
+    persistent: bool = False  # -p
+    fano_scale: float = 8.0
+    fano_delta: int = 32  # 4 * scale
+    fano_maxcycles: int = 100
+    #: tier-1 cycles-per-bit cap of the device walk; lanes that time out
+    #: re-run on the host path at the full fano_maxcycles budget —
+    #: identical outcomes, bounded tail latency.  None disables tiering.
+    fano_tier1_maxcycles: int | None = 12
+    code: CodeSpec = DEFAULT_CODE
+    #: quicklook tier: accept the QLI candidate (qdecode.c:129-134) only
+    #: when re-encoding it reproduces every hard decision and the frame
+    #: ends in the syncword — exactly what Fano would return
+    quicklook: bool = True
+    #: QLEC tier between quicklook and Fano (no reference counterpart);
+    #: strict_labels() switches it off for reference-label parity
+    qlec: bool = True
+
+    @staticmethod
+    def strict_labels(**kw) -> "DecodeConfig":
+        """A config whose decoder LABELS match decode.c (no QLEC tier)."""
+        kw.setdefault("qlec", False)
+        return DecodeConfig(**kw)
+
+    def mettab(self) -> np.ndarray:
+        """Fano metric table for threshold operation at Eb/N0 = 3 dB with
+        symdemod's amplitude-100 normalization (decode.c:120-135)."""
+        sig, noise = decoder_amplitudes(100.0, 1.0)
+        return gen_met(sig, noise, 0.5, self.fano_scale)
+
+    def fano_params(self) -> FanoParams:
+        return FanoParams(delta=self.fano_delta, maxcycles=self.fano_maxcycles)
+
+    def fano_params_tier1(self) -> FanoParams:
+        cap = self.fano_maxcycles
+        if self.fano_tier1_maxcycles is not None:
+            cap = min(self.fano_tier1_maxcycles, cap)
+        return FanoParams(delta=self.fano_delta, maxcycles=cap)
+
+
+class FrameRecord(NamedTuple):
+    """Decoded frames, one row per lane (host numpy arrays)."""
+
+    data: np.ndarray  # (L, FRAMEBITS//8) uint8 frame bytes
+    good: np.ndarray  # (L,) bool — syncword verified (lock)
+    decoder: np.ndarray  # (L,) int — DECODER_* code
+    start_symbol: np.ndarray  # (L,) int64 symbol index of frame start
+    fano_cycles: np.ndarray  # (L,) int32
+
+
+@functools.lru_cache(maxsize=8)
+def _mettab_device(cfg: DecodeConfig, device: torch.device) -> torch.Tensor:
+    """cfg.mettab() computed once per config and device (gen_met
+    integrates erf per bin on the host)."""
+    return torch.as_tensor(cfg.mettab(), dtype=torch.int32, device=device)
+
+
+def _tail(code: CodeSpec) -> int:
+    return SYNCWORD & ((1 << (code.k - 1)) - 1)
+
+
+def _gather_frames(
+    symbols: torch.Tensor, sync_start: torch.Tensor, nframes: int
+) -> torch.Tensor:
+    """(B, S) soft symbols → (B*nframes, FRAMESYMBOLS) consecutive frames
+    after each channel's sync, lane order channel-major."""
+    B, S = symbols.shape
+    dev = symbols.device
+    starts = (sync_start.to(torch.int64)[:, None] + SYNCBITS
+              + FRAMESYMBOLS * torch.arange(nframes, device=dev)[None, :])
+    idx = (starts[..., None]
+           + torch.arange(FRAMESYMBOLS, device=dev)[None, None, :]).reshape(B, -1)
+    if int(idx.max()) >= S:
+        raise ValueError(f"frame window past end of soft stream "
+                         f"({int(idx.max())} >= {S})")
+    return symbols.gather(1, idx).reshape(B * nframes, FRAMESYMBOLS)
+
+
+def _quicklook_frames(fsyms: torch.Tensor, code: CodeSpec):
+    """Quick-look candidate bits + exact verification (qdecode.c:129-134):
+    hard(s1)^hard(s2)^1 recovers the data delayed by one bit; accepted
+    only if re-encoding from SYNC_STATE reproduces every hard decision.
+    Returns (bits (L, FRAMEBITS) uint8, ok (L,) bool)."""
+    L = fsyms.shape[0]
+    hard = (fsyms.to(torch.int32) > 128).to(torch.uint8)
+    pairs = hard.reshape(L, -1, 2)
+    ql = pairs[..., 0] ^ pairs[..., 1] ^ 1  # bit t-1 at pair t
+    last = torch.full((L, 1), SYNCWORD & 1, dtype=torch.uint8, device=fsyms.device)
+    bits = torch.cat([ql[:, 1:], last], dim=1)
+    resyms, _ = encode_bits(bits, SYNC_STATE, code)
+    ok = (resyms == hard).all(dim=-1) & verify_frame(bits)
+    return bits, ok
+
+
+def _qlec_frames(fsyms: torch.Tensor, ql_bits: torch.Tensor, code: CodeSpec,
+                 rounds: int = 2):
+    """Middle decode tier: algebraic error correction on the quicklook
+    candidate.  Re-encoding the candidate against the hard symbols gives
+    a residual whose burst starts mark wrong bits; flip them and accept
+    only when the remaining residual is exactly explained (plus the
+    syncword check).  Returns (bits (L, FRAMEBITS) uint8, ok (L,) bool)."""
+    L = fsyms.shape[0]
+    w = code.k - 1
+    hard = (fsyms.to(torch.int32) > 128).to(torch.uint8)
+
+    def pair_bad(bits):
+        resyms, _ = encode_bits(bits, SYNC_STATE, code)
+        return (resyms ^ hard).reshape(L, FRAMEBITS, 2).amax(dim=-1)
+
+    def prev_any(pb):
+        """Any bad pair among the previous w pairs (burst masking)."""
+        padded = torch.nn.functional.pad(pb, (w, 0))
+        acc = torch.zeros_like(pb)
+        for d in range(1, w + 1):
+            acc = acc | padded[:, w - d : w - d + FRAMEBITS]
+        return acc
+
+    def explained_by(flips):
+        return torch.nn.functional.pad(flips[:, :-1], (1, 0))
+
+    bits = ql_bits
+    flips = torch.zeros((L, FRAMEBITS), dtype=torch.uint8, device=fsyms.device)
+    for _ in range(rounds):
+        pb_un = pair_bad(bits) & (1 - explained_by(flips))
+        start = pb_un & (1 - prev_any(pb_un))
+        start[:, FRAMEBITS - 1] = 0  # the last bit is the syncword LSB
+        bits = bits ^ start
+        flips = flips | start
+    unexplained = (pair_bad(bits) & (1 - explained_by(flips))).sum(dim=-1)
+    ok = (flips.sum(dim=-1) > 0) & (unexplained == 0) & verify_frame(bits)
+    return bits, ok
+
+
+def _decode_frames_core(
+    symbols: torch.Tensor,
+    sync_start: torch.Tensor,
+    nframes: int,
+    cfg: DecodeConfig,
+):
+    """Tiered frame decode: gather → quicklook → QLEC → tier-1 Fano.
+
+    Returns (data, good, decoder, ok, cycles) device tensors, lane order
+    channel-major; ``ok`` marks lanes decoded by a device tier.  The Fano
+    walk is skipped when every lane was decoded by a cheaper tier (a
+    walk of all-skipped lanes returns nothing that is used)."""
+    fsyms = _gather_frames(symbols, sync_start, nframes)
+    L = fsyms.shape[0]
+    dev = fsyms.device
+    none = torch.zeros(L, dtype=torch.bool, device=dev)
+    if cfg.quicklook:
+        ql_bits, ql_ok = _quicklook_frames(fsyms, cfg.code)
+    else:
+        ql_bits = torch.zeros((L, FRAMEBITS), dtype=torch.uint8, device=dev)
+        ql_ok = none
+    if cfg.qlec and cfg.quicklook:
+        ec_bits, ec_ok = _qlec_frames(fsyms, ql_bits, cfg.code)
+        ec_ok = ec_ok & ~ql_ok
+    else:
+        ec_bits, ec_ok = ql_bits, none
+    pre_ok = ql_ok | ec_ok
+    bits = torch.where(ec_ok[:, None], ec_bits, ql_bits)
+    cycles = torch.zeros(L, dtype=torch.int32, device=dev)
+    fano_ok = none
+    if cfg.fano_enabled and not bool(pre_ok.all()):
+        res = fano_decode(
+            fsyms, _mettab_device(cfg, dev), FRAMEBITS, SYNC_STATE,
+            _tail(cfg.code), cfg.code, cfg.fano_params_tier1(), skip=pre_ok,
+        )
+        fano_ok = ~pre_ok & (res.goodbits == FRAMEBITS)
+        bits = torch.where(pre_ok[:, None], bits, res.bits)
+        cycles = torch.where(pre_ok, 0, res.cycles).to(torch.int32)
+    ok = pre_ok | fano_ok
+    good = pre_ok | (fano_ok & verify_frame(bits))
+    # a lane whose Fano walk ran reports FANO even when it timed out
+    # (decode.c:200 labels the attempt before it runs)
+    decoder = torch.where(
+        ql_ok, DECODER_QUICKLOOK,
+        torch.where(ec_ok, DECODER_QLEC,
+                    DECODER_FANO if cfg.fano_enabled else DECODER_NONE),
+    ).to(torch.int32)
+    return bits_to_bytes(bits), good, decoder, ok, cycles
+
+
+def decode_block_device(
+    symbols: torch.Tensor,
+    nframes: int,
+    npos: int = FRAMESYMBOLS,
+    cfg: DecodeConfig = DecodeConfig(),
+) -> torch.Tensor:
+    """Sync search + tiered frame decode packed into ONE uint8 buffer on
+    the symbols' device.  Lanes with ``ok`` False still owe the tier-2
+    re-run (fano_tier2_inplace) and the Viterbi fallback.
+
+    Buffer layout for L = B*nframes lanes:
+      [0, 16L)       frame bytes (L × FRAMEBITS/8)
+      [16L, 17L)     good flags
+      [17L, 18L)     decoder codes
+      [18L, 19L)     ok flags
+      [19L, 23L)     fano cycles, int32 little-endian per lane
+      [23L, 23L+4B)  sync_start per channel, int32 little-endian
+    """
+    ss, _ = find_sync(symbols[:, : npos + SYNCBITS], npos, cfg.code)
+    data, good, decoder, ok, cycles = _decode_frames_core(symbols, ss, nframes, cfg)
+    return torch.cat([
+        data.reshape(-1),
+        good.to(torch.uint8),
+        decoder.to(torch.uint8),
+        ok.to(torch.uint8),
+        cycles.to(torch.int32).contiguous().view(torch.uint8),
+        ss.to(torch.int32).contiguous().view(torch.uint8),
+    ])
+
+
+def unpack_block_buffer(
+    buf: np.ndarray, B: int, nframes: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Split a decode_block_device result buffer into
+    (data, good, decoder, ok, cycles, sync_start)."""
+    L = B * nframes
+    nb = FRAMEBITS // 8
+    data = buf[: nb * L].reshape(L, nb).copy()
+    good = buf[nb * L : nb * L + L].astype(bool)
+    decoder = buf[nb * L + L : nb * L + 2 * L].astype(np.int32)
+    ok = buf[nb * L + 2 * L : nb * L + 3 * L].astype(bool)
+    cycles = buf[nb * L + 3 * L : nb * L + 7 * L].view(np.int32).copy()
+    ss = buf[nb * L + 7 * L :].view(np.int32).astype(np.int64)
+    return data, good, decoder, ok, cycles, ss
+
+
+def _gather_failed_lanes(
+    starts: np.ndarray, symbols: torch.Tensor, sub: np.ndarray, nframes: int
+) -> torch.Tensor:
+    """Frame-symbol windows (on the symbols' device) for the failed-lane
+    subset ``sub`` of a block with ``nframes`` frames per channel."""
+    idx = starts.reshape(-1)[sub, None] + np.arange(FRAMESYMBOLS)[None, :]
+    if idx.size and idx.max() >= symbols.shape[-1]:
+        raise ValueError(
+            f"frame window past end of soft stream: max index {idx.max()}"
+            f" >= {symbols.shape[-1]}"
+        )
+    dev = symbols.device
+    rows = symbols[torch.as_tensor(sub // nframes, device=dev)]
+    return rows.gather(1, torch.as_tensor(idx, device=dev))
+
+
+def fano_tier2_inplace(
+    data: np.ndarray,
+    good: np.ndarray,
+    decoder: np.ndarray,
+    ok: np.ndarray,
+    cycles: np.ndarray,
+    starts: np.ndarray,
+    symbols: torch.Tensor,
+    nframes: int,
+    cfg: DecodeConfig,
+) -> None:
+    """Full-budget Fano re-run of the lanes that timed out at the tier-1
+    cap; patches the result arrays in place.  Every straggler is patched
+    from the full-budget walk — still-failed ones too, whose partial
+    bits and cycle counts must match one flat full-budget pass."""
+    if (
+        not cfg.fano_enabled
+        or cfg.fano_tier1_maxcycles is None
+        or cfg.fano_tier1_maxcycles >= cfg.fano_maxcycles
+    ):
+        return
+    sub = np.nonzero(~ok)[0]
+    if sub.size == 0:
+        return
+    fsyms = _gather_failed_lanes(starts, symbols, sub, nframes)
+    res = fano_decode(
+        fsyms, _mettab_device(cfg, fsyms.device), FRAMEBITS, SYNC_STATE,
+        _tail(cfg.code), cfg.code, cfg.fano_params(),
+    )
+    fano_ok = (res.goodbits == FRAMEBITS).cpu().numpy()
+    data[sub] = bits_to_bytes(res.bits).cpu().numpy()
+    good[sub] = fano_ok & verify_frame(res.bits).cpu().numpy()
+    decoder[sub] = np.where(fano_ok, DECODER_FANO, decoder[sub])
+    ok[sub] = fano_ok
+    cycles[sub] = res.cycles.cpu().numpy()
+
+
+def viterbi_fallback_inplace(
+    data: np.ndarray,
+    good: np.ndarray,
+    decoder: np.ndarray,
+    ok: np.ndarray,
+    starts: np.ndarray,
+    symbols: torch.Tensor,
+    nframes: int,
+    cfg: DecodeConfig,
+) -> None:
+    """Viterbi over the lanes no device tier decoded (persistent-hybrid
+    policy).  A no-op when Viterbi is disabled or every lane decoded;
+    otherwise it raises: the Viterbi decoder is not ported yet, and no
+    other decoder stands in for it."""
+    sub = np.nonzero(~ok)[0]
+    if not cfg.viterbi_enabled or sub.size == 0:
+        return
+    raise NotImplementedError(
+        f"{sub.size} lane(s) need the Viterbi fallback, which is not "
+        "ported yet (ROADMAP: Viterbi slice — ops/viterbi.py and kernels "
+        "K5/K6); run with DecodeConfig(viterbi_enabled=False)"
+    )
+
+
+def decode_block(
+    symbols,
+    nframes: int,
+    cfg: DecodeConfig = DecodeConfig(),
+    npos: int = FRAMESYMBOLS,
+) -> tuple[FrameRecord, np.ndarray]:
+    """Block decode: one device pass + one fetch, then the host-driven
+    tier-2 Fano re-run and Viterbi fallback on failed lanes.
+
+    Returns (FrameRecord with batch axis B*nframes, sync_start (B,))."""
+    symbols = torch.as_tensor(symbols)
+    if symbols.ndim == 1:
+        symbols = symbols[None, :]
+    B = symbols.shape[0]
+    buf = decode_block_device(symbols, nframes, npos, cfg).cpu().numpy()
+    return _finish(buf, symbols, B, nframes, cfg)
+
+
+def _finish(buf: np.ndarray, symbols: torch.Tensor, B: int, nframes: int,
+            cfg: DecodeConfig) -> tuple[FrameRecord, np.ndarray]:
+    """Unpack a block buffer and run the host tail (tier-2 Fano, Viterbi
+    fallback) on failed lanes — shared by decode_block and the receive
+    chain."""
+    data, good, decoder, ok, cycles, ss = unpack_block_buffer(buf, B, nframes)
+    starts = ss[:, None] + SYNCBITS + FRAMESYMBOLS * np.arange(nframes)[None, :]
+    if (~ok).any():
+        fano_tier2_inplace(data, good, decoder, ok, cycles, starts, symbols,
+                           nframes, cfg)
+        viterbi_fallback_inplace(data, good, decoder, ok, starts, symbols,
+                                 nframes, cfg)
+    rec = FrameRecord(
+        data=data,
+        good=good,
+        decoder=decoder,
+        start_symbol=starts.reshape(-1),
+        fano_cycles=cycles,
+    )
+    return rec, ss
