@@ -5,17 +5,23 @@
 
 Builds the port's CUDA kernels from csrc/, checks each kernel against its
 plain PyTorch version on the card at the receive chain's bench shapes,
-then drives the main path (``models.pipeline.receive_block``) on a
-128-channel, 250 ksps block synthesized on the card, in the clean
-(noise_std 2500) and mid (noise_std 50000) regimes, and checks the
-decoded frames against the transmitted ones.  Fails (non-zero exit, no
-result line) without a CUDA device, on a build error, or when any check
-fails.  Imports no JAX.
+then drives the main path (``models.pipeline.receive_block``, default
+decode configuration: QLEC and the Viterbi fallback on) on a 128-channel,
+250 ksps block synthesized on the card, in the clean (noise_std 2500),
+mid (noise_std 50000) and threshold (noise_std 110000, where lanes reach
+the fused Viterbi, kernels K5/K6) regimes, and checks the decoded frames
+against the transmitted ones.  Fails (non-zero exit, no result line)
+without a CUDA device, on a build error, or when any check fails.
+Imports no JAX.
 
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
-path, its error against the plain version and both times; last, the
-JSON line {"ok": true, "device": {...}}.  Phases 3 and 4 each end
+path, its error against the plain version, its time, the plain
+version's, the least time the card could take (``bound_ms``: the larger
+of the bytes it must move over the HBM rate and the operations it must
+do over the peak rate of their type, for this run's inputs) and, where
+one PyTorch call computes the same function, that call's time; last,
+the JSON line {"ok": true, "device": {...}}.  Phases 3, 4 and 5 each end
 with a profile line: per-stage milliseconds of three receive_block
 runs, and the device busy time of one run under torch.profiler.
 """
@@ -40,6 +46,22 @@ NCHAN = 128
 NFRAMES_TX = 4
 NOISE_CLEAN = 2500.0
 NOISE_MID = 50000.0
+NOISE_THRESHOLD = 110000.0
+
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet; the
+# card's own power limit is printed beside the results).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # FMA counted as two operations
+# INT32 lanes: 132 SMs x 64 x 1.98 GHz boost clock
+I32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per ACS pair in csrc/viterbi.cu (two AND+POPC+AND+
+# XOR parities, symbol selects and add, 510-mt, four adds, two compares,
+# two selects) and per Fano micro-step in csrc/fano.cu (forward look,
+# threshold update, encoder step with two parities, metric selects,
+# bookkeeping) — counted from the kernels' source, address arithmetic
+# excluded
+ACS_OPS_PER_PAIR = 20
+FANO_OPS_PER_STEP = 30
 
 
 def log(msg: str) -> None:
@@ -80,6 +102,15 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int):
@@ -149,10 +180,14 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K1 amp off")
     require(float((c_k - c_p).abs().max()) <= 1e-2, "K1 cn0 off")
     require(err <= 1, "K1 baseband off by more than 1 LSB")
+    # reads the packed IQ, writes the int16 baseband; a complex MAC (8
+    # float32 operations) per sample and searched bin
     out["pm_locked"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: carrier_cuda.pm_locked_fused(*args), 20),
         plain_ms=cuda_ms(lambda: carrier_cuda.pm_locked_plain(*args), 5),
+        library_ms=None,
+        **bound(nchan * n * (4 + 2), 8.0 * K * n * nchan, F32_OPS_PER_S),
     )
 
     # ---- K2: spin-down at a given carrier
@@ -172,6 +207,9 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
                                                         cfg.samprate), 20),
         plain_ms=cuda_ms(lambda: carrier_cuda.spin_down_plain(
             packed, f, cfg.samprate), 5),
+        library_ms=None,
+        # phase step and complex rotation per sample (sincos not counted)
+        **bound(nchan * n * (4 + 2), 8.0 * nchan * n, F32_OPS_PER_S),
     )
     del packed, raw
 
@@ -185,12 +223,18 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     err = int((cs_k.long() - cs_p.long()).abs().max())
     log(f"  K3 prefix_sum: {tuple(cs_k.shape)} max |diff| {err}")
     require(err == 0, "K3 prefix sum not exact")
+    # the library yardstick: one torch.cumsum over the same values in the
+    # output's (B, T*n) order (inclusive, no tail column), timed only here
+    flat = bb.permute(1, 0, 2).reshape(nchan, -1).contiguous()
     out["prefix_sum"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks(bb, tail=1), 10),
         plain_ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks_plain(bb, 1), 3),
+        library_ms=cuda_ms(lambda: torch.cumsum(flat, dim=1, dtype=torch.int32),
+                           10),
+        **bound(bb.numel() * 2 + cs_k.numel() * 4, bb.numel(), I32_OPS_PER_S),
     )
-    del bb, cs_k, cs_p
+    del bb, cs_k, cs_p, flat
 
     # ---- K4: the Fano walk alone — metric precompute and root setup are
     # done once, outside the timed calls; bits and [np, gamma, cycles, t]
@@ -233,13 +277,149 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
         if m4.shape[0] == 16:
             require(nfail > 0, "K4 small batch has no timed-out lane")
     (m4, regs), params = cases[0]
+    _, st = fano_cuda.fano_walk(m4, regs, dcfg.code, params.delta,
+                                params.maxcycles)
+    steps = int(st[:, 2].sum())  # micro-steps this run's lanes walk
     out["fano_walk"] = dict(
         max_abs_err=0,
         ms=cuda_ms(lambda: fano_cuda.fano_walk(
             m4, regs, dcfg.code, params.delta, params.maxcycles), 5),
         plain_ms=plain_fano_ms,
+        library_ms=None,
+        **bound(m4.numel() * 4 + regs.numel() * 4 + m4.shape[0] * m4.shape[1]
+                + st.numel() * 4, steps * FANO_OPS_PER_STEP, I32_OPS_PER_S),
     )
+    out.update(check_viterbi(dev))
     return out
+
+
+def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
+    """K5 (with a non-zero base) and K6 over one whole K=24 cycle of B
+    frames of random metrics inside the renorm range, against their
+    plain versions: metrics, decision words and row minima exact.
+    Returns their records: kernel and plain ms, bound."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
+
+    w, rowb, _ = vc._geometry(code)
+    n = code.nstates
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    m0 = ri(0, 12000, (B, n)).to(torch.int16)
+    syms = ri(0, 256, (B, 2 * w))
+    sa, sb = syms[:, : 2 * rowb].contiguous(), syms[:, 2 * rowb :].contiguous()
+    base = ri(1, 600, (B,))
+    mk, mp = m0.clone(), m0.clone()
+    _, dk = vc.cycle_a(mk, sa, code, rowb, base)
+    _, dp = vc.cycle_a_plain(mp, sa, code, rowb, base)
+    require(torch.equal(mk, mp) and torch.equal(dk, dp),
+            f"K5 differs from its plain version at B={B}")
+    _, dk, nk = vc.cycle_b(mk, sb, code, w - rowb)
+    _, dp, npl = vc.cycle_b_plain(mp, sb, code, w - rowb)
+    require(torch.equal(mk, mp) and torch.equal(dk, dp) and torch.equal(nk, npl),
+            f"K6 differs from its plain version at B={B}")
+    del dk, dp, m0
+    # timed on the same buffers; the metrics drift from call to call,
+    # which changes no work the kernels do
+    da = torch.empty((B, rowb, n // 32), dtype=torch.int32, device=dev)
+    db = torch.empty((B, w - rowb, n // 32), dtype=torch.int32, device=dev)
+    rec = {
+        "viterbi_a": dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: vc.cycle_a(mk, sa, code, rowb, base, da), 10),
+            plain_ms=cuda_ms(lambda: vc.cycle_a_plain(mp, sa, code, rowb, base,
+                                                      da), 2),
+            library_ms=None,
+            **bound(B * (4 * n + rowb * n // 8) + sa.numel() * 4 + B * 4,
+                    B * rowb * (n // 2) * ACS_OPS_PER_PAIR, I32_OPS_PER_S),
+        ),
+        "viterbi_b": dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: vc.cycle_b(mk, sb, code, w - rowb, db), 10),
+            plain_ms=cuda_ms(lambda: vc.cycle_b_plain(mp, sb, code, w - rowb,
+                                                      db), 2),
+            library_ms=None,
+            **bound(B * (4 * n + (w - rowb) * n // 8 + (1 << rowb) * 4)
+                    + sb.numel() * 4, B * (w - rowb) * (n // 2)
+                    * ACS_OPS_PER_PAIR, I32_OPS_PER_S),
+        ),
+    }
+    log(f"  K5/K6 one K=24 cycle at B={B}: exact; K5 "
+        f"{rec['viterbi_a']['ms']:.3f} ms (plain {rec['viterbi_a']['plain_ms']:.3f},"
+        f" bound {rec['viterbi_a']['bound_ms']:.3f}), K6 "
+        f"{rec['viterbi_b']['ms']:.3f} ms (plain {rec['viterbi_b']['plain_ms']:.3f},"
+        f" bound {rec['viterbi_b']['bound_ms']:.3f})")
+    return rec
+
+
+def check_viterbi(dev) -> dict:
+    """Phase 2's K5/K6 part: one cycle at B=2, then whole-frame decodes
+    of 2 noisy K=24 frames through the kernels and through their plain
+    versions (bits exact), with the frame's ACS and traceback timed
+    apart."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.config import FRAMEBITS, SYNC_STATE
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.ops.viterbi_fused import (
+        chainback_planes,
+        decode_frame_fused,
+        update_frame_fused_planes,
+    )
+    from isee3_decoder_tpu_torch.ops.viterbi_inplace import START_BIAS
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    rec = viterbi_cycle_check(dev, 2, seed=24)
+    rng = np.random.default_rng(6)
+    sent = bytes_to_bits(torch.as_tensor(random_frames(rng, 2), device=dev))
+    syms, _ = encode_bits(sent, SYNC_STATE, code)
+    noise = torch.as_tensor(rng.normal(0.0, 80.0, syms.shape),
+                            dtype=torch.float32, device=dev)
+    soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    bits_k = decode_frame_fused(soft, FRAMEBITS, SYNC_STATE, SYNC_STATE, code)
+    start, end = _events()
+    start.record()
+    with _kernels.plain_reference():
+        bits_p = decode_frame_fused(soft, FRAMEBITS, SYNC_STATE, SYNC_STATE,
+                                    code)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    require(torch.equal(bits_k, bits_p), "K=24 frame decode: kernel path and "
+            "plain path give different bits")
+
+    def metrics0():
+        m = torch.full((2, code.nstates), START_BIAS, dtype=torch.int16,
+                       device=dev)
+        m[:, SYNC_STATE & code.state_mask] = 0
+        return m
+
+    m = metrics0()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dec, _ = update_frame_fused_planes(m, soft, FRAMEBITS, code)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chainback_planes(dec, FRAMEBITS, SYNC_STATE, code)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    frame = {"frames": 2, "acs_ms": round((t1 - t0) * 1e3, 3),
+             "chainback_ms": round((t2 - t1) * 1e3, 3),
+             "plain_decode_ms": round(plain_ms, 3),
+             "bit_errors": int((bits_k != sent.to(torch.uint8)).sum())}
+    log(f"  K5/K6 decode of 2 K=24 frames: kernel == plain; "
+        f"{json.dumps(frame)}")
+    return rec
 
 
 def _events():
@@ -366,13 +546,14 @@ def profile_block(iq, nframes: int, cfg, regime: str) -> None:
 
 
 def frame_stats(rec, frames, nchan: int, nframes: int) -> tuple[int, int]:
-    data = rec.data.reshape(nchan, nframes, -1)
-    good = rec.good.reshape(nchan, nframes)
-    matched = sum(
-        1 for ch in range(nchan) for f in range(nframes)
-        if good[ch, f] and any(np.array_equal(data[ch, f], fr) for fr in frames)
-    )
-    return int(rec.good.sum()), matched
+    good, matched = rec.good.sum(), matched_mask(rec, frames, nchan, nframes)
+    return int(good), int(matched.sum())
+
+
+def matched_mask(rec, frames, nchan: int, nframes: int) -> np.ndarray:
+    """Lanes that are good and equal one of the transmitted frames."""
+    return np.array([bool(g) and any(np.array_equal(d, fr) for fr in frames)
+                     for g, d in zip(rec.good, rec.data)])
 
 
 def decoder_mix(rec) -> dict:
@@ -404,11 +585,16 @@ def main() -> int:
 
     from isee3_decoder_tpu_torch import _kernels
     from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, SYNCBITS
-    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.decode import (
+        DECODER_VITERBI,
+        DecodeConfig,
+        _viterbi_decode,
+    )
     from isee3_decoder_tpu_torch.models.pipeline import (
         PipelineConfig,
         demod_to_symbols,
         receive_block,
+        receive_block_device_soft,
     )
     from isee3_decoder_tpu_torch.ops.carrier import PMConfig
     from isee3_decoder_tpu_torch.ops.symbols import SymConfig
@@ -431,8 +617,7 @@ def main() -> int:
     nsamples = int(seconds * SAMPRATE)
     pm = PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
     sym = SymConfig(samprate=SAMPRATE, symrate=SYMRATE)
-    cfg = PipelineConfig(pm=pm, sym=sym,
-                         decode=DecodeConfig(viterbi_enabled=False))
+    cfg = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig())
     t0 = time.perf_counter()
     frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=0)
     soft = demod_to_symbols(iq, cfg)[0]  # warm-up; frames available
@@ -457,8 +642,7 @@ def main() -> int:
 
     # ---- phase 4: main path, mid regime
     t0 = time.perf_counter()
-    mid = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig.strict_labels(
-        viterbi_enabled=False))
+    mid = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig.strict_labels())
     frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_MID, seed=99)
     # kernel path vs plain path on 8 channels; maxcycles lowered alike for
     # both so the plain tier-2 walk stays short
@@ -486,6 +670,51 @@ def main() -> int:
     require(launches_mid["fano_walk"] > 0, "mid regime: K4 never launched")
     require(backends_mid.get("fano") == "cuda", "mid regime: Fano not on CUDA")
     profile_block(iq, nframes, mid, "mid")
+    del iq
+
+    # ---- phase 5: main path, threshold regime (the Viterbi fallback)
+    t0 = time.perf_counter()
+    thr = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig())
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_THRESHOLD, seed=11)
+    receive_block(iq, nframes, thr)  # warm-up
+    rec, t_thr, launches_thr, backends_thr = timed_receive(iq, nframes, thr)
+    for k, v in launches_thr.items():
+        launches[k] += v
+    good, matched = frame_stats(rec, frames, NCHAN, nframes)
+    possible = rec.good.size
+    vit = np.nonzero(rec.decoder == DECODER_VITERBI)[0]
+    log(f"phase 5 threshold: {NCHAN} ch x {nframes} frames, receive_block "
+        f"{_ms(t_thr)} ms (counted run, then 4 more); good {good}/{possible}, "
+        f"matched {matched}; decoders {decoder_mix(rec)}; launches "
+        f"{launches_thr}; backend {backends_thr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    false_good = rec.good & ~matched_mask(rec, frames, NCHAN, nframes)
+    if false_good.any():
+        log(f"  good frames not sent: lanes {np.nonzero(false_good)[0].tolist()}"
+            f", decoders {rec.decoder[false_good].tolist()}")
+    require(matched == good, "threshold regime: a good frame was not sent")
+    require(good >= 0.9 * possible, "threshold regime: fewer than 90 % good")
+    require(vit.size >= 1, "threshold regime: no lane reached Viterbi")
+    require(launches_thr["viterbi_a"] > 0 and launches_thr["viterbi_b"] > 0,
+            "threshold regime: K5/K6 never launched")
+    require(backends_thr.get("viterbi") == "cuda",
+            "threshold regime: Viterbi not on CUDA")
+    # up to 2 of the Viterbi lanes again: kernels vs plain versions
+    _, soft = receive_block_device_soft(iq, nframes, FRAMESYMBOLS, thr)
+    lanes = vit[:2]
+    fsyms = torch.stack([soft[lane // nframes, s : s + FRAMESYMBOLS]
+                         for lane, s in zip(lanes, rec.start_symbol[lanes])])
+    bits_k = _viterbi_decode(fsyms, thr.decode)
+    with _kernels.plain_reference():
+        bits_p = _viterbi_decode(fsyms, thr.decode)
+    require(torch.equal(bits_k, bits_p),
+            "threshold regime: Viterbi lanes differ between kernels and plain")
+    del soft, fsyms
+    log(f"  {lanes.size} Viterbi lane(s) kernel path == plain path")
+    # K5/K6 timed at the batch the main path's fallback ran
+    checks.update(viterbi_cycle_check(dev, int(vit.size), seed=25))
+    profile_block(iq, nframes, thr, "threshold")
+    del iq
     for k, v in launches.items():
         require(v > 0, f"kernel {k} never launched on the main path")
 
@@ -495,6 +724,10 @@ def main() -> int:
         "spin_down": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:214"),
         "prefix_sum": ("prefix.cu", "isee3_decoder_tpu/ops/prefix_pallas.py:65"),
         "fano_walk": ("fano.cu", "isee3_decoder_tpu/ops/fano_pallas.py:106"),
+        "viterbi_a": ("viterbi.cu",
+                      "isee3_decoder_tpu/ops/viterbi_pallas_fused.py:157"),
+        "viterbi_b": ("viterbi.cu",
+                      "isee3_decoder_tpu/ops/viterbi_pallas_fused.py:203"),
     }
     kernels = [
         {
@@ -503,11 +736,11 @@ def main() -> int:
             "source": src + meta[name][0],
             "replaces": meta[name][1],
             "launches": launches[name],
-            "max_abs_err": checks[name]["max_abs_err"],
-            "ms": checks[name]["ms"],
-            "plain_ms": checks[name]["plain_ms"],
+            **{key: checks[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
         }
-        for name in ("pm_locked", "spin_down", "prefix_sum", "fano_walk")
+        for name in meta
     ]
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}), flush=True)

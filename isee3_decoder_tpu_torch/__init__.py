@@ -4,7 +4,8 @@ telemetry receive chain.
 Same layout and module names as ``isee3_decoder_tpu`` (the JAX reference
 it is held against), so each counterpart sits at the same path:
 
-  config    — code tables and framing constants (re-exported unchanged)
+  config    — code tables and framing constants (the port's own copy,
+              held equal to the JAX package's by a test)
   ops       — compute stages; ``*_cuda.py`` hold the hand-written CUDA
               kernels (``csrc/``) beside their plain PyTorch versions
   models    — symdemod, decode and the receive chain composition

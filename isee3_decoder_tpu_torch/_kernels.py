@@ -40,8 +40,11 @@ LAUNCHES: dict[str, int] = {
     "spin_down": 0,
     "prefix_sum": 0,
     "fano_walk": 0,
+    "viterbi_a": 0,
+    "viterbi_b": 0,
 }
-#: pipeline stage ("pm", "csum", "fano") → "cuda" or "torch", last run
+#: pipeline stage ("pm", "csum", "fano", "viterbi") → "cuda" or "torch",
+#: last run
 backend_used: dict[str, str] = {}
 
 _lib: ctypes.CDLL | None = None
@@ -53,6 +56,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # packed, row_stride, iw, B, n, K, samprate, binsize, flip, dop,
     # chirp, bb, stat, spec, cyc, mom, stream
@@ -67,6 +71,14 @@ _SIGNATURES = {
     # poly2, g1flip, g2flip, tape, bits, stats, stream
     "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P),
+    # metrics, syms, base, dec, dec_bstride, dec_tstride, B, rowb, colb,
+    # nsteps, q1, q2, g1flip, g2flip, stream
+    "viterbi_a_launch": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
+    # metrics, syms, dec, dec_bstride, dec_tstride, mins, B, rowb, colb,
+    # nsteps, q1, q2, g1flip, g2flip, stream
+    "viterbi_b_launch": (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
 }
 
 
@@ -175,3 +187,22 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def run_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device``, which defaults to
+    "cuda".  With no card, only ``device="cpu"`` runs: the port never
+    falls back to the CPU by itself."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+def place(x, device=None) -> torch.Tensor:
+    """The input of an entry point as a tensor on the device it runs on:
+    a CUDA tensor stays where it lies unless ``device`` names another;
+    anything else goes to run_device(device)."""
+    if device is None and isinstance(x, torch.Tensor) and x.is_cuda:
+        return x
+    return torch.as_tensor(x, device=run_device(device))

@@ -6,9 +6,18 @@ scattered symbol errors) and the tier-1 Fano walk (kernel K4) at a
 cycles-per-bit cap, packed into one uint8 buffer so the host pays one
 fetch.  The host tail re-runs the lanes that ran out of cycles at the
 full budget (same walk, so outcomes equal one full-budget pass), then
-sends what is left to Viterbi under the reference policy
-(decode.c:209-214).  The Viterbi decoder is not ported yet: when a lane
-needs it and it is enabled, ``viterbi_fallback_inplace`` raises.
+sends what is left to the fused Viterbi decoder (kernels K5/K6, in
+chunks sized by the decision-memory budget) under the reference policy
+(decode.c:209-214):
+
+  Viterbi runs iff it is enabled AND (Fano is disabled OR (Fano failed
+  AND (the previous frame decoded OR -p persistent))).
+
+``decode_block`` and the receive chain apply the persistent-hybrid form
+(every failed lane); ``decode_frames_batch`` and ``decode_stream`` apply
+the previous-frame gating.  Entry points take ``device=None``: a CUDA
+tensor runs where it lies, anything else goes to the card unless the
+caller passes ``device="cpu"`` (see ``_kernels.place``).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import (
     DEFAULT_CODE,
     FRAMEBITS,
@@ -32,7 +42,13 @@ from isee3_decoder_tpu_torch.config import (
 from isee3_decoder_tpu_torch.ops.encode import bits_to_bytes, encode_bits
 from isee3_decoder_tpu_torch.ops.fano import FanoParams, fano_decode
 from isee3_decoder_tpu_torch.ops.syncword import find_sync, verify_frame
+from isee3_decoder_tpu_torch.ops.viterbi_fused import (
+    decision_budget,
+    decode_frame_fused,
+    frame_tape_bytes,
+)
 from isee3_decoder_tpu_torch.utils.metrics import decoder_amplitudes, gen_met
+from isee3_decoder_tpu_torch.utils.timeformat import format_hms
 
 DECODER_NONE, DECODER_VITERBI, DECODER_FANO, DECODER_QUICKLOOK = 0, 1, 2, 3
 DECODER_QLEC = 4  # quicklook + algebraic error correction (middle tier)
@@ -325,6 +341,21 @@ def fano_tier2_inplace(
     cycles[sub] = res.cycles.cpu().numpy()
 
 
+def _viterbi_decode(fsyms: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
+    """(L, FRAMESYMBOLS) soft symbols → (L, FRAMEBITS) uint8 bits by the
+    fused Viterbi decoder (K5/K6 on a CUDA tensor, their plain versions
+    on a CPU one), from SYNC_STATE to SYNC_STATE.  Frames go in chunks
+    as large as the decision-memory budget allows (one tape of
+    FRAMEBITS·n/8 bytes per frame; see decision_budget)."""
+    per = frame_tape_bytes(FRAMEBITS, cfg.code)
+    chunk = max(decision_budget(fsyms.device) // per, 1)
+    return torch.cat([
+        decode_frame_fused(fsyms[lo : lo + chunk], FRAMEBITS, SYNC_STATE,
+                           SYNC_STATE, cfg.code)
+        for lo in range(0, fsyms.shape[0], chunk)
+    ])
+
+
 def viterbi_fallback_inplace(
     data: np.ndarray,
     good: np.ndarray,
@@ -335,18 +366,22 @@ def viterbi_fallback_inplace(
     nframes: int,
     cfg: DecodeConfig,
 ) -> None:
-    """Viterbi over the lanes no device tier decoded (persistent-hybrid
-    policy).  A no-op when Viterbi is disabled or every lane decoded;
-    otherwise it raises: the Viterbi decoder is not ported yet, and no
-    other decoder stands in for it."""
+    """Viterbi over every lane no Fano or cheaper tier decoded
+    (persistent-hybrid policy); patches the result arrays in place."""
     sub = np.nonzero(~ok)[0]
     if not cfg.viterbi_enabled or sub.size == 0:
         return
-    raise NotImplementedError(
-        f"{sub.size} lane(s) need the Viterbi fallback, which is not "
-        "ported yet (ROADMAP: Viterbi slice — ops/viterbi.py and kernels "
-        "K5/K6); run with DecodeConfig(viterbi_enabled=False)"
-    )
+    _viterbi_patch(data, good, decoder, sub,
+                   _gather_failed_lanes(starts, symbols, sub, nframes), cfg)
+
+
+def _viterbi_patch(data, good, decoder, sub, fsyms, cfg) -> None:
+    """Decode the frames ``fsyms`` of lanes ``sub`` by Viterbi and patch
+    the result arrays."""
+    vbits = _viterbi_decode(fsyms, cfg)
+    data[sub] = bits_to_bytes(vbits).cpu().numpy()
+    good[sub] = verify_frame(vbits).cpu().numpy()
+    decoder[sub] = DECODER_VITERBI
 
 
 def decode_block(
@@ -354,12 +389,13 @@ def decode_block(
     nframes: int,
     cfg: DecodeConfig = DecodeConfig(),
     npos: int = FRAMESYMBOLS,
+    device=None,
 ) -> tuple[FrameRecord, np.ndarray]:
     """Block decode: one device pass + one fetch, then the host-driven
     tier-2 Fano re-run and Viterbi fallback on failed lanes.
 
     Returns (FrameRecord with batch axis B*nframes, sync_start (B,))."""
-    symbols = torch.as_tensor(symbols)
+    symbols = _kernels.place(symbols, device)
     if symbols.ndim == 1:
         symbols = symbols[None, :]
     B = symbols.shape[0]
@@ -387,3 +423,214 @@ def _finish(buf: np.ndarray, symbols: torch.Tensor, B: int, nframes: int,
         fano_cycles=cycles,
     )
     return rec, ss
+
+
+def decode_frames_batch(
+    symbols,
+    sync_start,
+    nframes: int,
+    cfg: DecodeConfig = DecodeConfig(),
+    prev_lock: np.ndarray | bool = False,
+    device=None,
+) -> FrameRecord:
+    """Throughput mode: decode ``nframes`` consecutive frames per channel
+    after a known sync, channels × frames as one batch of lanes.
+
+    With ``cfg.persistent`` (-p) the Viterbi fallback runs on every Fano
+    failure in one batch.  Without it the reference's previous-frame
+    gating applies (decode.c:209-214): frame f of a channel falls back
+    to Viterbi only if frame f-1 of that channel decoded — a serial pass
+    over the frame axis, batched across channels.  ``prev_lock`` (B,)
+    is the lock entering frame 0 (the reference starts unlocked).
+
+    Returns one FrameRecord with batch axis B*nframes (channel-major)."""
+    symbols = _kernels.place(symbols, device)
+    if symbols.ndim == 1:
+        symbols = symbols[None, :]
+    B = symbols.shape[0]
+    sync_start = np.broadcast_to(np.asarray(sync_start, np.int64), (B,)).copy()
+    starts = (sync_start[:, None] + SYNCBITS
+              + FRAMESYMBOLS * np.arange(nframes)[None, :])
+    L = B * nframes
+    data = np.zeros((L, FRAMEBITS // 8), np.uint8)
+    good = np.zeros(L, bool)
+    decoder = np.full(L, DECODER_NONE, np.int32)
+    decode_ok = np.zeros(L, bool)
+    cycles = np.zeros(L, np.int32)
+
+    device_tiers = cfg.fano_enabled or cfg.quicklook
+    if device_tiers:
+        ss = torch.as_tensor(sync_start, device=symbols.device)
+        data, good, decoder, decode_ok, cycles = (
+            x.cpu().numpy() for x in _decode_frames_core(symbols, ss, nframes, cfg))
+        if (~decode_ok).any():
+            fano_tier2_inplace(data, good, decoder, decode_ok, cycles, starts,
+                               symbols, nframes, cfg)
+
+    if cfg.viterbi_enabled:
+        if cfg.persistent or not device_tiers:
+            viterbi_fallback_inplace(data, good, decoder, decode_ok, starts,
+                                     symbols, nframes, cfg)
+        else:
+            lock = np.broadcast_to(np.asarray(prev_lock, bool), (B,)).copy()
+            for f in range(nframes):
+                idx = np.arange(B) * nframes + f
+                need = ~decode_ok[idx] & lock
+                if need.any():
+                    sub = idx[need]
+                    _viterbi_patch(data, good, decoder, sub, _gather_failed_lanes(
+                        starts, symbols, sub, nframes), cfg)
+                    decode_ok[sub] = True
+                lock = good[idx].copy()
+
+    return FrameRecord(data=data, good=good, decoder=decoder,
+                       start_symbol=starts.reshape(-1), fano_cycles=cycles)
+
+
+class DecodeStreamState:
+    """Per-channel stream walk state (host side)."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.lock = np.zeros(batch, bool)
+        self.pos = np.zeros(batch, np.int64)  # absolute index of buffer start
+        self.sync_start = np.zeros(batch, np.int64)
+
+
+def _gather_windows(symbols: torch.Tensor, starts: np.ndarray,
+                    length: int) -> torch.Tensor:
+    """(B, length) windows of ``symbols`` at per-channel starts."""
+    idx = starts[:, None] + np.arange(length)[None, :]
+    return symbols.gather(1, torch.as_tensor(idx, device=symbols.device))
+
+
+def decode_stream(
+    symbols,
+    cfg: DecodeConfig = DecodeConfig(),
+    state: DecodeStreamState | None = None,
+    max_frames: int | None = None,
+    device=None,
+) -> tuple[list[FrameRecord], DecodeStreamState]:
+    """Walk a (B, S) soft-symbol stream, emitting decoded frames.
+
+    Mirrors the decode.c main loop: sync re-search when unlocked
+    (decode.c:162-193), tiered decode with the gated Viterbi fallback,
+    verification, purge (decode.c:269-281).  The state can be carried
+    across calls for true streaming."""
+    symbols = _kernels.place(symbols, device)
+    if symbols.ndim == 1:
+        symbols = symbols[None, :]
+    B, S = symbols.shape
+    dev = symbols.device
+    if state is None:
+        state = DecodeStreamState(B)
+    mettab = _mettab_device(cfg, dev)
+    tail = _tail(cfg.code)
+
+    records: list[FrameRecord] = []
+    while max_frames is None or len(records) < max_frames:
+        if (state.pos + FRAMESYMBOLS + SYNCBITS > S).any():
+            break
+        if not state.lock.all():
+            wins = _gather_windows(symbols, state.pos, FRAMESYMBOLS + SYNCBITS)
+            ss, _ = find_sync(wins, FRAMESYMBOLS, cfg.code)
+            state.sync_start = np.where(state.lock, 0,
+                                        ss.cpu().numpy().astype(np.int64))
+        else:
+            state.sync_start[:] = 0
+        frame_start = state.pos + state.sync_start + SYNCBITS
+        if (frame_start + FRAMESYMBOLS > S).any():
+            break
+        fsyms = _gather_windows(symbols, frame_start, FRAMESYMBOLS)
+
+        decoder = np.full(B, DECODER_NONE, np.int32)
+        bits = np.zeros((B, FRAMEBITS), np.uint8)
+        cycles = np.zeros(B, np.int32)
+        pre_ok = np.zeros(B, bool)
+        if cfg.quicklook:
+            qbits, qok = _quicklook_frames(fsyms, cfg.code)
+            ql_ok = qok.cpu().numpy()
+            bits[ql_ok] = qbits.cpu().numpy()[ql_ok]
+            decoder[ql_ok] = DECODER_QUICKLOOK
+            pre_ok = ql_ok
+            if cfg.qlec:
+                ec_bits, ec_ok = _qlec_frames(fsyms, qbits, cfg.code)
+                ec_ok = ec_ok.cpu().numpy() & ~ql_ok
+                bits[ec_ok] = ec_bits.cpu().numpy()[ec_ok]
+                decoder[ec_ok] = DECODER_QLEC
+                pre_ok = ql_ok | ec_ok
+        decode_ok = pre_ok.copy()
+
+        if cfg.fano_enabled:
+            res = fano_decode(fsyms, mettab, FRAMEBITS, SYNC_STATE, tail,
+                              cfg.code, cfg.fano_params_tier1(),
+                              skip=torch.as_tensor(pre_ok, device=dev))
+            fano_ok = ~pre_ok & (res.goodbits == FRAMEBITS).cpu().numpy()
+            decoder = np.where(pre_ok, decoder, DECODER_FANO).astype(np.int32)
+            bits = np.where(pre_ok[:, None], bits,
+                            res.bits.cpu().numpy()).astype(np.uint8)
+            decode_ok = pre_ok | fano_ok
+            cycles = np.where(pre_ok, 0, res.cycles.cpu().numpy()).astype(np.int32)
+            # tier 2: full-budget re-run of the lanes that timed out at the
+            # tier-1 cap (the same walk: results equal one full pass)
+            tiered = (cfg.fano_tier1_maxcycles is not None
+                      and cfg.fano_tier1_maxcycles < cfg.fano_maxcycles)
+            if tiered and (~decode_ok).any():
+                sub = np.nonzero(~decode_ok)[0]
+                res2 = fano_decode(fsyms[torch.as_tensor(sub, device=dev)],
+                                   mettab, FRAMEBITS, SYNC_STATE, tail,
+                                   cfg.code, cfg.fano_params())
+                bits[sub] = res2.bits.cpu().numpy()
+                cycles[sub] = res2.cycles.cpu().numpy()
+                decode_ok[sub] = (res2.goodbits == FRAMEBITS).cpu().numpy()
+
+        if cfg.viterbi_enabled:
+            # decode.c:209-214 fallback policy
+            if not cfg.fano_enabled:
+                need_vit = np.ones(B, bool)
+            else:
+                need_vit = (cfg.persistent | state.lock) & ~decode_ok
+            if need_vit.any():
+                sub = np.nonzero(need_vit)[0]
+                vbits = _viterbi_decode(fsyms[torch.as_tensor(sub, device=dev)],
+                                        cfg)
+                bits[sub] = vbits.cpu().numpy()
+                decoder[sub] = DECODER_VITERBI
+                decode_ok[sub] = True  # Viterbi always returns a frame
+
+        bits_t = torch.from_numpy(bits)
+        good = decode_ok & verify_frame(bits_t).numpy()
+        state.lock = good.copy()
+        records.append(FrameRecord(
+            data=bits_to_bytes(bits_t).numpy(),
+            good=good,
+            decoder=decoder,
+            start_symbol=frame_start.copy(),
+            fano_cycles=cycles,
+        ))
+        # purge the decoded frame (decode.c:269-281): the buffer now
+        # starts at the sync sequence of the frame just decoded
+        state.pos = state.pos + state.sync_start + FRAMESYMBOLS
+        state.sync_start[:] = 0
+    return records, state
+
+
+def format_frame(rec: FrameRecord, channel: int, frame_no: int,
+                 symrate: float = 1024.0) -> str:
+    """Pretty-print one channel's frame like decode.c:249-265."""
+    name = {
+        DECODER_VITERBI: "Viterbi",
+        DECODER_FANO: "Fano",
+        DECODER_QUICKLOOK: "Quicklook",
+        DECODER_QLEC: "Quicklook-EC",
+    }.get(int(rec.decoder[channel]), "None")
+    start = int(rec.start_symbol[channel])
+    head = (
+        f"Frame {frame_no:,} at symbol {start:,} "
+        f"({format_hms(start / symrate)}) with {name} "
+        f"{'' if rec.good[channel] else '(bad)'}"
+    )
+    data = rec.data[channel]
+    body = [" ".join(f"{b:02x}" for b in data[i : i + 16])
+            for i in range(0, len(data), 16)]
+    return head + "\n" + "\n".join(body) + "\n"

@@ -12,7 +12,8 @@ batch of tensors on one device.  ``receive_block`` is the main path:
   4. models/decode.decode_block_device — sync search, quicklook, QLEC,
      tier-1 Fano walk (kernel K4), one packed buffer;
   5. on the host: tier-2 Fano re-run (kernel K4) of lanes that ran out
-     of cycles, then the Viterbi fallback policy.
+     of cycles, then the fused Viterbi (kernels K5/K6) on every lane
+     still undecoded (models/decode.viterbi_fallback_inplace).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
 from isee3_decoder_tpu_torch.models.decode import (
     DecodeConfig,
@@ -117,11 +119,12 @@ def receive_block(
     nframes: int,
     cfg: PipelineConfig = PipelineConfig(),
     npos: int | None = None,
+    device=None,
 ) -> tuple[FrameRecord, np.ndarray]:
-    """Receive one block: IQ (tensor on the device to run on, or numpy
-    for the CPU) → (FrameRecord with batch axis B*nframes, sync_start
-    (B,))."""
-    iq = torch.as_tensor(iq)
+    """Receive one block: IQ → (FrameRecord with batch axis B*nframes,
+    sync_start (B,)).  A CUDA tensor runs where it lies; any other input
+    goes to the card unless ``device="cpu"`` is passed."""
+    iq = _kernels.place(iq, device)
     if iq.ndim == 1:
         iq = iq[None, :]
     if npos is None:

@@ -6,8 +6,9 @@ port's counterparts from the JAX package's objects (duck-typed: nothing
 here imports JAX), so a test can start both packages from identical
 state.  Fields that only select a JAX/TPU execution backend
 (``search_backend``, ``csum_backend``, ``viterbi_backend``, ...) have no
-counterpart and are dropped.  The code spec is shared: both packages use
-the one ``isee3_decoder_tpu.config.CodeSpec``.
+counterpart and are dropped.  The port keeps its own copy of the code
+tables (``isee3_decoder_tpu_torch.config``), so a JAX ``CodeSpec``
+becomes the port's equal one through ``code_spec``.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from isee3_decoder_tpu_torch.config import CodeSpec
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.models.pipeline import PipelineConfig
 from isee3_decoder_tpu_torch.ops.carrier import PMCarry, PMConfig
 from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+from isee3_decoder_tpu_torch.ops.viterbi_inplace import StreamState
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -46,8 +49,13 @@ def sym_config(src) -> SymConfig:
     return _fields(SymConfig, src)
 
 
+def code_spec(src) -> CodeSpec:
+    """A JAX package CodeSpec → the port's CodeSpec with equal fields."""
+    return _fields(CodeSpec, src)
+
+
 def decode_config(src) -> DecodeConfig:
-    return _fields(DecodeConfig, src)
+    return _fields(DecodeConfig, src, code=code_spec(src.code))
 
 
 def pipeline_config(src) -> PipelineConfig:
@@ -70,3 +78,19 @@ def pm_carry(src, device=None) -> PMCarry:
 def mettab(src, device=None) -> torch.Tensor:
     """A (2, 256) metric table → int32 tensor."""
     return torch.as_tensor(np.asarray(src), dtype=torch.int32, device=device)
+
+
+def stream_state(src, device=None) -> StreamState:
+    """A JAX rotating-layout StreamState → the port's: int16 metrics, the
+    uint32 decision tape as int32 words of the same bits, host-int dp and
+    total."""
+    return StreamState(
+        metrics=torch.as_tensor(np.array(src.metrics), dtype=torch.int16,
+                                device=device),
+        decisions=torch.as_tensor(
+            np.array(src.decisions, np.uint32).view(np.int32), device=device),
+        dp=int(src.dp),
+        total=int(src.total),
+        renorm=torch.as_tensor(np.array(src.renorm), dtype=torch.int32,
+                               device=device),
+    )

@@ -11,17 +11,45 @@ from isee3_decoder_tpu.ops import encode as jenc
 from isee3_decoder_tpu.ops import reductions as jred
 from isee3_decoder_tpu.ops import syncword as jsync
 from isee3_decoder_tpu.utils import metrics as jmet
+from isee3_decoder_tpu.utils import timeformat as jtime
 from isee3_decoder_tpu_torch import config as tcfg
 from isee3_decoder_tpu_torch.ops import encode as tenc
 from isee3_decoder_tpu_torch.ops import syncword as tsync
 from isee3_decoder_tpu_torch.utils import metrics as tmet
+from isee3_decoder_tpu_torch.utils import timeformat as ttime
 
 K7 = tcfg.CodeSpec("TESTK7", 0o171, 0o133, 7, 0, 0)
 
 
+CONSTANTS = ("FRAMEBITS", "FRAMESYMBOLS", "SYNCBITS", "SYNCWORD", "SYNC_STATE",
+             "NOMINALCLOCK", "ACTUALCLOCK")
+FIELDS = ("name", "poly1", "poly2", "k", "g1flip", "g2flip")
+
+
 def test_config_is_the_jax_config_reexported():
-    for name in tcfg.__all__:
-        assert getattr(tcfg, name) is getattr(jcfg, name), name
+    """The port keeps its own copy of the JAX package's config (it
+    imports nothing of that package); the copy must equal it: every
+    CodeSpec field of every catalogued code, the derived widths, the
+    default code and the framing constants."""
+    assert list(tcfg.CODES) == list(jcfg.CODES)
+    for name, code in jcfg.CODES.items():
+        mine = tcfg.CODES[name]
+        for f in FIELDS:
+            assert getattr(mine, f) == getattr(code, f), (name, f)
+        for prop in ("nstates", "kbits", "state_mask", "encstate_mask"):
+            assert getattr(mine, prop) == getattr(code, prop), (name, prop)
+    for f in FIELDS:
+        assert getattr(tcfg.DEFAULT_CODE, f) == getattr(jcfg.DEFAULT_CODE, f)
+    for name in CONSTANTS:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    assert tcfg.CodeSpec is not jcfg.CodeSpec
+    for x in (0, 1, 0o073665667, 2**70 + 5):
+        assert tcfg.parity(x) == jcfg.parity(x)
+
+
+@pytest.mark.parametrize("name", list(jcfg.CODES))
+def test_sync_vector_copy_matches_jax(name):
+    assert tcfg.sync_vector(tcfg.CODES[name]) == jcfg.sync_vector(jcfg.CODES[name])
 
 
 @pytest.mark.parametrize(
@@ -94,3 +122,9 @@ def test_argmax_tie_rules_match_jax():
         tsync.argmax_last(torch.from_numpy(x)).numpy(),
         np.asarray(jred.argmax_last(jnp.asarray(x))),
     )
+
+
+@pytest.mark.parametrize("t", [0.0, 3.25, 61.0009, 3599.9996, 86400.0 * 2 + 3725.5])
+def test_timeformat_copy_matches_jax(t):
+    assert ttime.hms(t) == jtime.hms(t)
+    assert ttime.format_hms(t) == jtime.format_hms(t)

@@ -16,6 +16,7 @@ from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import CodeSpec, DEFAULT_CODE, SYNC_STATE
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, prefix_cuda
+from isee3_decoder_tpu_torch.ops import viterbi_cuda, viterbi_fused
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import FanoParams, _fano_decode_packed
 from isee3_decoder_tpu_torch.utils.devicesignal import (
@@ -27,6 +28,8 @@ from isee3_decoder_tpu_torch.utils.devicesignal import (
 pytestmark = pytest.mark.cuda
 
 K7 = CodeSpec("TESTK7", 0o171, 0o133, 7, 0, 0)
+K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
+K18 = CodeSpec("TESTK18", 0o654321, 0o735271, 18, 0, 1)
 
 
 @pytest.fixture
@@ -125,3 +128,60 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int16"):
         prefix_cuda.prefix_sum_blocks(torch.zeros((1, 2, 8), dtype=torch.int32,
                                                   device=dev))
+
+
+@pytest.mark.parametrize("code", [K15, K18, DEFAULT_CODE],
+                         ids=["K15", "K18", "MCQLI24"])
+def test_k5_k6_one_cycle_exact(dev, code):
+    """One whole cycle through K5 (with a non-zero base) and K6 against
+    the plain versions: metrics, decision words and per-row minima."""
+    w, rowb, _ = viterbi_cuda._geometry(code)
+    B = 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(code.k)
+    m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    syms = torch.randint(0, 256, (B, 2 * w), generator=gen, device=dev,
+                         dtype=torch.int32)
+    base = torch.randint(0, 600, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    sa, sb = syms[:, : 2 * rowb].contiguous(), syms[:, 2 * rowb :].contiguous()
+    mk, mp = m0.clone(), m0.clone()
+    na = _kernels.LAUNCHES["viterbi_a"]
+    _, dk = viterbi_cuda.cycle_a(mk, sa, code, rowb, base)
+    _, dp = viterbi_cuda.cycle_a_plain(mp, sa, code, rowb, base)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_a"] == na + 1
+    assert torch.equal(mk, mp) and torch.equal(dk, dp)
+    _, dk, nk = viterbi_cuda.cycle_b(mk, sb, code, w - rowb)
+    _, dp, np_ = viterbi_cuda.cycle_b_plain(mp, sb, code, w - rowb)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mp) and torch.equal(dk, dp) and torch.equal(nk, np_)
+
+
+def test_decode_frame_fused_kernels_exact(dev):
+    """A full 1024-bit K18 frame batch: bits through K5/K6 equal the
+    plain path's, and the decoder recovers the sent bits."""
+    rng = np.random.default_rng(18)
+    nbits, B = 1024, 3
+    bits = torch.as_tensor(rng.integers(0, 2, (B, nbits)), device=dev)
+    bits[:, -(K18.k - 1):] = 0
+    syms, _ = encode_bits(bits, 0, K18)
+    noise = torch.as_tensor(rng.normal(0, 60, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    got = viterbi_fused.decode_frame_fused(soft, nbits, 0, 0, K18)
+    with _kernels.plain_reference():
+        want = viterbi_fused.decode_frame_fused(soft, nbits, 0, 0, K18)
+    assert torch.equal(got, want)
+    assert torch.equal(got, bits.to(torch.uint8))
+
+
+def test_viterbi_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    m = torch.zeros((1, K15.nstates), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="syms"):
+        viterbi_cuda.cycle_a(m, torch.zeros((1, 2), dtype=torch.int64,
+                                            device=dev), K15, 1)
+    with pytest.raises(ValueError, match="nsteps"):
+        viterbi_cuda.cycle_b(m, torch.zeros((1, 2 * 14), dtype=torch.int32,
+                                            device=dev), K15, 14)

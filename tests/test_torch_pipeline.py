@@ -41,7 +41,8 @@ def _iq(seed: int, noises, nframes_tx: int = 3) -> tuple[np.ndarray, np.ndarray]
 def _compare(iq: np.ndarray, cfg, nframes: int = 1):
     rec_j, ss_j = jpipe.receive_block(iq, nframes, cfg)
     tcfg = convert.pipeline_config(cfg)
-    rec_t, ss_t = tpipe.receive_block(torch.from_numpy(iq), nframes, tcfg)
+    rec_t, ss_t = tpipe.receive_block(torch.from_numpy(iq), nframes, tcfg,
+                                      device="cpu")
     np.testing.assert_array_equal(ss_t, ss_j)
     for f in ("data", "good", "decoder", "start_symbol"):
         np.testing.assert_array_equal(getattr(rec_t, f), getattr(rec_j, f), f)
