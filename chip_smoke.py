@@ -10,9 +10,14 @@ decode configuration: QLEC and the Viterbi fallback on) on a 128-channel,
 250 ksps block synthesized on the card, in the clean (noise_std 2500),
 mid (noise_std 50000) and threshold (noise_std 110000, where lanes reach
 the fused Viterbi, kernels K5/K6) regimes, and checks the decoded frames
-against the transmitted ones.  Fails (non-zero exit, no result line)
-without a CUDA device, on a build error, or when any check fails.
-Imports no JAX.
+against the transmitted ones.  Then the wideband path: one packed-int32
+capture of 128 channel slots x 2^21 frames through the fused polyphase
+channelizer (kernel K7a) and the same chain
+(``receive_block_wideband``); an edge-carrier capture through the 2x
+oversampled bank (kernel K7b) and ``receive_block`` at the doubled
+channel rate; and three blocks through ``receive_blocks_pipelined``.
+Fails (non-zero exit, no result line) without a CUDA device, on a build
+error, or when any check fails.  Imports no JAX.
 
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
@@ -21,9 +26,9 @@ version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs) and, where
 one PyTorch call computes the same function, that call's time; last,
-the JSON line {"ok": true, "device": {...}}.  Phases 3, 4 and 5 each end
-with a profile line: per-stage milliseconds of three receive_block
-runs, and the device busy time of one run under torch.profiler.
+the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6 each end
+with a profile line: per-stage milliseconds of three runs of the block,
+and the device busy time of one run under torch.profiler.
 """
 
 from __future__ import annotations
@@ -62,6 +67,15 @@ I32_OPS_PER_S = 132 * 64 * 1.98e9
 # excluded
 ACS_OPS_PER_PAIR = 20
 FANO_OPS_PER_STEP = 30
+
+# wideband regime (the JAX package's bench.py): one capture of NCHAN slots
+# x 2^21 frames; edge-carrier path: 32 slots of 128 kHz at 4.096 Msps, so
+# the 2x oversampled channel rate is 256 ksps
+WIDE_FRAMES = 1 << 21
+TAPS_PER_BRANCH = 8
+EDGE_NCHAN = 32
+EDGE_SAMPRATE = 4_096_000.0
+EDGE_SLOT = 3
 
 
 def log(msg: str) -> None:
@@ -113,7 +127,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int):
+def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int,
+                frames_seed: int = 0):
     """(frames (F, 128) uint8, (nchan, 2*nsamples) int16 raw IQ on dev):
     the same frames on every channel, carriers 20 kHz + 137 Hz·i."""
     import torch
@@ -124,7 +139,7 @@ def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int):
         to_raw_int16,
     )
 
-    frames = random_frames(np.random.default_rng(0), NFRAMES_TX)
+    frames = random_frames(np.random.default_rng(frames_seed), NFRAMES_TX)
     frames_dev = torch.as_tensor(
         np.ascontiguousarray(np.broadcast_to(frames, (nchan, *frames.shape))),
         device=dev,
@@ -429,21 +444,21 @@ def _events():
             torch.cuda.Event(enable_timing=True))
 
 
-def timed_receive(iq, nframes: int, cfg):
+def timed_runs(run):
     """The main path: launch counts are set to 0 just before the counted
-    receive_block run and read just after; four more runs are timed.
-    Returns (record, [seconds of each run], launches, backends)."""
+    run() and read just after; four more runs are timed.  run() returns
+    (record, sync starts).  Returns (record, [seconds of each run],
+    launches, backends)."""
     import torch
 
     from isee3_decoder_tpu_torch import _kernels
-    from isee3_decoder_tpu_torch.models.pipeline import receive_block
 
     times = []
     torch.cuda.synchronize()
     _kernels.reset_launches()
     for i in range(5):
         t0 = time.perf_counter()
-        rec, _ = receive_block(iq, nframes, cfg)
+        rec, _ = run()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if i == 0:
@@ -452,14 +467,21 @@ def timed_receive(iq, nframes: int, cfg):
     return rec, times, launches, backends
 
 
+def timed_receive(iq, nframes: int, cfg):
+    from isee3_decoder_tpu_torch.models.pipeline import receive_block
+
+    return timed_runs(lambda: receive_block(iq, nframes, cfg))
+
+
 def _ms(times) -> str:
     return "/".join(f"{t * 1e3:.1f}" for t in times)
 
 
-def stage_ms(iq, nframes: int, cfg) -> dict:
+def stage_ms(iq, nframes: int, cfg, front=None) -> dict:
     """Wall milliseconds of each stage of one receive_block, called one
     by one as pipeline._demod and receive_block call them, with a
-    synchronize after each."""
+    synchronize after each.  ``front`` turns ``iq`` (a wide capture) into
+    the per-channel raw first, as receive_block_wideband does."""
     import torch
 
     from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
@@ -472,11 +494,6 @@ def stage_ms(iq, nframes: int, cfg) -> dict:
     from isee3_decoder_tpu_torch.ops.carrier import init_carry, pm_demod_scan
     from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 
-    B, n = iq.shape[0], cfg.pm.fftsize
-    nblocks = iq.shape[1] // (2 * n)
-    blocks = iq[:, : nblocks * 2 * n].reshape(B, nblocks, 2 * n)
-    nwindows = max((nblocks * n - initial_firstsample(cfg.sym))
-                   // window_samples(cfg.sym) - 1, 0)
     out = {}
     torch.cuda.synchronize()
     t = [time.perf_counter()]
@@ -487,6 +504,14 @@ def stage_ms(iq, nframes: int, cfg) -> dict:
         out[name] = round((now - t[0]) * 1e3, 3)
         t[0] = now
 
+    if front is not None:
+        iq = front(iq)
+        mark("channelizer")
+    B, n = iq.shape[0], cfg.pm.fftsize
+    nblocks = iq.shape[1] // (2 * n)
+    blocks = iq[:, : nblocks * 2 * n].reshape(B, nblocks, 2 * n)
+    nwindows = max((nblocks * n - initial_firstsample(cfg.sym))
+                   // window_samples(cfg.sym) - 1, 0)
     _, pm_out = pm_demod_scan(init_carry(B, cfg.pm, device=iq.device), blocks,
                               cfg.pm)
     mark("pm_scan")
@@ -535,12 +560,14 @@ def device_busy(fn) -> dict:
             "top_ms_count": [(k, round(v / 1e3, 3), c) for k, (v, c) in top]}
 
 
-def profile_block(iq, nframes: int, cfg, regime: str) -> None:
-    """Three stage breakdowns and one profiled receive_block."""
+def profile_block(iq, nframes: int, cfg, regime: str, run=None,
+                  front=None) -> None:
+    """Three stage breakdowns and one profiled run of the block
+    (receive_block unless ``run`` is given)."""
     from isee3_decoder_tpu_torch.models.pipeline import receive_block
 
-    stages = [stage_ms(iq, nframes, cfg) for _ in range(3)]
-    prof = device_busy(lambda: receive_block(iq, nframes, cfg))
+    stages = [stage_ms(iq, nframes, cfg, front) for _ in range(3)]
+    prof = device_busy(run or (lambda: receive_block(iq, nframes, cfg)))
     log("  profile " + json.dumps({"regime": regime, "stages_ms": stages,
                                    **prof}))
 
@@ -566,6 +593,328 @@ def decoder_mix(rec) -> dict:
     return {names[int(v)]: int(c) for v, c in zip(vals, counts)}
 
 
+def raw_diff(a, b) -> tuple[int, float]:
+    """(max |a - b|, share of samples that differ) of two int16 tensors,
+    in chunks of rows so no int32 copy of a whole 1 GiB output is made."""
+    worst, ndiff = 0, 0
+    for r in range(0, a.shape[0], 8):
+        d = (a[r : r + 8].int() - b[r : r + 8].int()).abs()
+        worst = max(worst, int(d.max()))
+        ndiff += int((d > 0).sum())
+    return worst, ndiff / a.numel()
+
+
+def random_packed(dev, nwords: int, seed: int):
+    """nwords packed IQ words, I and Q uniform in +-20000."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    iq = torch.randint(-20000, 20000, (2, nwords), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return (iq[0] & 0xFFFF) | (iq[1] << 16)
+
+
+def check_channelizer(dev, nchan: int = NCHAN, frames: int = WIDE_FRAMES) -> dict:
+    """Phase 2's K7a/K7b part: the fused channelizer against its plain
+    version (the plain bank + trunc-clip) on random captures whose length
+    leaves whole tiles, a partial last tile and a partial last frame, then
+    at the wideband block's shape, where both are timed.  At most 1 LSB
+    apart on under 1 % of the samples: float32 rounding at truncation
+    boundaries."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import channelizer_cuda as cc
+
+    P = TAPS_PER_BRANCH
+    names = {1: "channelize", 2: "channelize2"}
+    for os_, nfr, extra in ((1, 4096 + P - 1, 0), (2, 4096 + P, 0),
+                            (1, 3000, 5), (2, 3001, nchan // 2 + 1)):
+        packed = random_packed(dev, nfr * nchan + extra, seed=nfr)
+        got = cc.channelize_raw_fused(packed, nchan, P, oversample=os_)
+        want = cc.channelize_raw_plain(packed, nchan, P, oversample=os_)
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"K7 {names[os_]}: shape {tuple(got.shape)} vs plain "
+                f"{tuple(want.shape)}")
+        worst, share = raw_diff(got, want)
+        log(f"  K7 {names[os_]}: {nfr} frames + {extra} words -> "
+            f"{tuple(got.shape)}, max |diff| {worst} LSB, {share:.5%} differ")
+        require(worst <= 1 and share < 0.01, f"K7 {names[os_]} disagrees")
+
+    out = {}
+    packed = random_packed(dev, frames * nchan, seed=7)
+    logm = int(np.log2(nchan))
+    for os_ in (1, 2):
+        got = cc.channelize_raw_fused(packed, nchan, P, oversample=os_)
+        want = cc.channelize_raw_plain(packed, nchan, P, oversample=os_)
+        require(got.shape == want.shape, f"K7 {names[os_]}: shapes differ")
+        worst, share = raw_diff(got, want)
+        require(worst <= 1 and share < 0.01,
+                f"K7 {names[os_]} disagrees at the block shape")
+        nsamp = got.shape[1] // 2
+        del got, want
+        out[names[os_]] = dict(
+            max_abs_err=worst,
+            ms=cuda_ms(lambda: cc.channelize_raw_fused(
+                packed, nchan, P, oversample=os_), 10),
+            plain_ms=cuda_ms(lambda: cc.channelize_raw_plain(
+                packed, nchan, P, oversample=os_), 2),
+            library_ms=None,
+            # every word read once, every (I, Q) pair written once; P tap
+            # multiply-adds on I and Q and, as an FFT, 5 log2(M) operations
+            # per output sample and channel
+            **bound(packed.numel() * 4 + nchan * nsamp * 4,
+                    float(nchan) * nsamp * (4 * P + 5 * logm), F32_OPS_PER_S),
+        )
+        torch.cuda.empty_cache()
+        r = out[names[os_]]
+        log(f"  K7 {names[os_]} at {nchan} x {frames} frames: max |diff| "
+            f"{worst} LSB, {share:.5%} differ; {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})")
+    return out
+
+
+def frames_available(soft) -> int:
+    """Whole frames after the latest channel's first sync."""
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, SYNCBITS
+    from isee3_decoder_tpu_torch.ops.syncword import find_sync
+
+    ss, _ = find_sync(soft[:, : FRAMESYMBOLS + SYNCBITS], FRAMESYMBOLS)
+    return int((soft.shape[1] - int(ss.max()) - SYNCBITS) // FRAMESYMBOLS)
+
+
+def own_frames_mask(rec, per_chan, nframes: int) -> np.ndarray:
+    """Lanes that are good and equal a frame their own channel sent."""
+    return np.array([bool(g) and any(np.array_equal(d, fr)
+                                     for fr in per_chan[lane // nframes])
+                     for lane, (g, d) in enumerate(zip(rec.good, rec.data))])
+
+
+def phase_wideband(dev, cfg, nchan: int = NCHAN, frames: int = WIDE_FRAMES):
+    """Phase 6: one wide capture carrying a different frame stream in each
+    of nchan slots -> receive_block_wideband.  Returns the launches of
+    the counted run."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        demod_to_symbols,
+        receive_block_wideband,
+        wideband_raw,
+    )
+    from isee3_decoder_tpu_torch.utils.devicesignal import (
+        random_frames,
+        synthesize_wideband_device,
+        to_packed_wide,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    per_chan = np.stack([random_frames(rng, NFRAMES_TX) for _ in range(nchan)])
+    carriers = torch.as_tensor(20_000.0 + 137.0 * np.arange(nchan),
+                               dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    # amplitude within the capture's 16-bit range (the slots' carriers
+    # add); noise scaled with it, so each slot's C/N0 is the clean regime's
+    amp = min(12_000.0, 30_000.0 / nchan)
+    wide = synthesize_wideband_device(
+        torch.as_tensor(per_chan, device=dev), carriers, gen, frames, nchan,
+        samprate=cfg.pm.samprate, symrate=cfg.sym.symrate, amplitude=amp,
+        noise_std=NOISE_CLEAN * amp / 12_000.0)
+    packed = to_packed_wide(wide)
+    del wide
+    torch.cuda.empty_cache()
+    soft = demod_to_symbols(wideband_raw(packed, nchan, TAPS_PER_BRANCH), cfg)[0]
+    nframes = frames_available(soft)
+    require(nframes >= 1, "wideband: no whole frame in the block")
+    del soft
+
+    def run():
+        return receive_block_wideband(packed, nchan, nframes, cfg,
+                                      taps_per_branch=TAPS_PER_BRANCH)
+
+    run()  # warm-up of the decode half
+    rec, times, launches, backends = timed_runs(run)
+    own = own_frames_mask(rec, per_chan, nframes)
+    log(f"phase 6 wideband: 1 capture of {nchan} slots x {frames} frames "
+        f"({packed.numel() * 4 / 2**30:.2f} GiB packed), {nframes} frames per "
+        f"channel, receive_block_wideband {_ms(times)} ms (counted run, then 4 "
+        f"more); good {int(rec.good.sum())}/{rec.good.size}, from their own "
+        f"channel {int(own.sum())}; decoders {decoder_mix(rec)}; launches "
+        f"{launches}; backend {backends} ({time.perf_counter() - t0:.1f} s)")
+    for stage in ("channelizer", "pm", "csum"):
+        require(backends.get(stage) == "cuda",
+                f"wideband: stage {stage} did not run on CUDA")
+    require(launches["channelize"] == 1,
+            "wideband: K7a must launch once per block")
+    require(bool((own == rec.good).all()),
+            "wideband: a good frame was not sent on its own channel")
+    require(int(rec.good.sum()) == rec.good.size,
+            "wideband: not every frame decoded")
+    # the same call through every kernel's plain version, on the card
+    with _kernels.plain_reference():
+        rec_p, ss_p = run()
+    rec_k, ss_k = run()
+    for field in ("data", "good", "decoder"):
+        require(np.array_equal(getattr(rec_k, field), getattr(rec_p, field)),
+                f"wideband: kernel and plain paths differ in {field}")
+    require(np.array_equal(ss_k, ss_p), "wideband: sync differs")
+    log(f"  kernel path == plain path over {nchan} channels: bytes, good "
+        f"flags, decoder labels")
+    profile_block(packed, nframes, cfg, "wideband", run=run,
+                  front=lambda w: wideband_raw(w, nchan, TAPS_PER_BRANCH))
+    return launches
+
+
+def edge_capture(dev, frames: np.ndarray, carrier_hz: float, samprate: float,
+                 nsamples: int, symrate: float, amplitude: float,
+                 noise_std: float, seed: int):
+    """One PM downlink at carrier_hz in a capture at samprate, packed
+    int32.  The carrier phase runs in float64 cycles reduced mod 1: at
+    megahertz offsets over millions of samples a float32 ramp loses the
+    phase."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE, SYNC_STATE
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.utils.devicesignal import to_packed_wide
+
+    bits = bytes_to_bits(torch.as_tensor(frames, device=dev).reshape(1, -1))
+    syms, _ = encode_bits(bits, SYNC_STATE, DEFAULT_CODE)
+    t = torch.arange(nsamples, dtype=torch.float64, device=dev)
+    pos = t * (symrate / samprate)
+    idx = torch.floor(pos).to(torch.int64) % syms.shape[-1]
+    level = torch.where(syms[0, idx] > 0, 1.0, -1.0)
+    d = torch.where(pos - torch.floor(pos) >= 0.5, level, -level)
+    cycles = torch.remainder(t * (carrier_hz / samprate), 1.0)
+    ph = (2 * np.pi * cycles + 1.1 * d + 0.7).to(torch.float32)
+    del t, pos, idx, level, d, cycles
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    iq = amplitude * torch.polar(torch.ones_like(ph), ph)
+    iq = iq + noise_std * torch.complex(
+        torch.randn(ph.shape, generator=gen, device=dev),
+        torch.randn(ph.shape, generator=gen, device=dev))
+    return to_packed_wide(iq)
+
+
+def phase_edge(dev, nchan: int = EDGE_NCHAN, samprate: float = EDGE_SAMPRATE,
+               symrate: float = SYMRATE, slot: int = EDGE_SLOT):
+    """Phase 7: a downlink whose carrier sits exactly on the edge between
+    slots ``slot`` and ``slot + 1`` -> the 2x oversampled bank (kernel
+    K7b) -> both neighbouring rows through receive_block at the doubled
+    channel rate.  Returns the launches of the path."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        demod_to_symbols,
+        receive_block,
+    )
+    from isee3_decoder_tpu_torch.ops import channelizer_cuda as cc
+    from isee3_decoder_tpu_torch.ops.carrier import PMConfig
+    from isee3_decoder_tpu_torch.ops.channelizer import channel_center
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    t0 = time.perf_counter()
+    fs_out = 2 * samprate / nchan
+    frames = random_frames(np.random.default_rng(7), 3)
+    nsamples = int((3 * 2048 + 400) / symrate * samprate)
+    packed = edge_capture(
+        dev, frames, channel_center(slot, samprate, nchan) + fs_out / 4,
+        samprate, nsamples, symrate, amplitude=3000.0, noise_std=30.0, seed=7)
+    cfg = PipelineConfig(
+        pm=PMConfig(samprate=fs_out, binsize=4.0, search_width=200.0),
+        sym=SymConfig(samprate=fs_out, symrate=symrate),
+        decode=DecodeConfig(),
+    )
+    # sizing pass (also the warm-up): how many whole frames the block holds
+    raw = cc.channelize_raw_fused(packed, nchan, TAPS_PER_BRANCH, oversample=2)
+    soft, _, freq, _ = demod_to_symbols(raw[slot : slot + 2].contiguous(), cfg)
+    nframes = frames_available(soft)
+    require(nframes >= 1, "edge carrier: no whole frame in the block")
+    del raw, soft
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    raw = cc.channelize_raw_fused(packed, nchan, TAPS_PER_BRANCH, oversample=2)
+    rows = raw[slot : slot + 2].contiguous()
+    rec, _ = receive_block(rows, nframes, cfg)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    backends = dict(_kernels.backend_used)
+    want = cc.channelize_raw_plain(packed, nchan, TAPS_PER_BRANCH, oversample=2)
+    worst, share = raw_diff(raw, want)
+    found = freq[-1].tolist()
+    matched = matched_mask(rec, frames, 2, nframes)
+    log(f"phase 7 edge carrier: {nchan} slots at {samprate:.0f} sps, carrier "
+        f"on the edge of slots {slot}/{slot + 1}, K7b -> {tuple(raw.shape)} at "
+        f"{fs_out:.0f} sps (vs plain: max |diff| {worst} LSB, {share:.5%} "
+        f"differ); carriers found {found} Hz; {nframes} frames per row, good "
+        f"{int(rec.good.sum())}/{rec.good.size}, matched {int(matched.sum())}; "
+        f"decoders {decoder_mix(rec)}; launches {launches}; backend {backends} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(worst <= 1 and share < 0.01, "edge carrier: K7b disagrees with plain")
+    require(launches["channelize2"] >= 1, "edge carrier: K7b never launched")
+    require(backends.get("channelizer") == "cuda",
+            "edge carrier: channelizer did not run on CUDA")
+    require(abs(found[0] - fs_out / 4) < 50.0 and abs(found[1] + fs_out / 4) < 50.0,
+            "edge carrier: carrier not at +-fs_out/4 in the neighbouring rows")
+    require(bool((matched == rec.good).all()),
+            "edge carrier: a good frame was not sent")
+    require(int(matched.sum()) >= 1, "edge carrier: no good, matched frame")
+    return launches
+
+
+def phase_pipelined(dev, nsamples: int, nframes: int, cfg, nblocks: int = 4):
+    """Phase 8: nblocks clean blocks through receive_blocks_pipelined
+    (depth 2) give, in order, the records of as many receive_block calls
+    (more blocks than depth + 1, so a pinned result buffer is used twice);
+    wall time per block of both loops."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        receive_block,
+        receive_blocks_pipelined,
+    )
+
+    t0 = time.perf_counter()
+    # a different frame stream in each block, so the order shows
+    blocks = [bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=20 + i,
+                          frames_seed=20 + i)[1] for i in range(nblocks)]
+    torch.cuda.synchronize()
+    walls = {}
+    for name in ("loop", "pipelined", "pipelined", "loop"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if name == "loop":
+            got = [receive_block(b, nframes, cfg) for b in blocks]
+        else:
+            got = list(receive_blocks_pipelined(blocks, nframes, cfg, depth=2))
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append((time.perf_counter() - t1) / nblocks)
+        if name == "loop":
+            serial = got
+        else:
+            piped = got
+    require(len(piped) == nblocks, "pipelined: wrong number of blocks")
+    for i, ((rp, sp), (rs, ss)) in enumerate(zip(piped, serial)):
+        for field in ("data", "good", "decoder", "fano_cycles", "start_symbol"):
+            require(np.array_equal(getattr(rp, field), getattr(rs, field)),
+                    f"pipelined: block {i} differs from receive_block in {field}")
+        require(np.array_equal(sp, ss), f"pipelined: block {i} sync differs")
+        require(bool(rp.good.all()), f"pipelined: block {i} has a bad frame")
+    require(not np.array_equal(serial[0][0].data, serial[1][0].data),
+            "pipelined: the blocks carry the same frames, order is unchecked")
+    log(f"phase 8 pipelined: {nblocks} clean blocks, depth 2 == receive_block "
+        f"block by block; ms per block: plain loop {_ms(walls['loop'])}, "
+        f"pipelined {_ms(walls['pipelined'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: package {PKG}/ not found beside this script",
@@ -584,7 +933,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from isee3_decoder_tpu_torch import _kernels
-    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, SYNCBITS
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
     from isee3_decoder_tpu_torch.models.decode import (
         DECODER_VITERBI,
         DecodeConfig,
@@ -598,7 +947,6 @@ def main() -> int:
     )
     from isee3_decoder_tpu_torch.ops.carrier import PMConfig
     from isee3_decoder_tpu_torch.ops.symbols import SymConfig
-    from isee3_decoder_tpu_torch.ops.syncword import find_sync
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -610,6 +958,7 @@ def main() -> int:
     # ---- phase 2: kernels vs plain PyTorch on the card
     t0 = time.perf_counter()
     checks = check_kernels(dev)
+    checks.update(check_channelizer(dev))
     log(f"phase 2 kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 3: main path, clean regime, 128 channels
@@ -621,8 +970,7 @@ def main() -> int:
     t0 = time.perf_counter()
     frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=0)
     soft = demod_to_symbols(iq, cfg)[0]  # warm-up; frames available
-    ss, _ = find_sync(soft[:, : FRAMESYMBOLS + SYNCBITS], FRAMESYMBOLS)
-    nframes = int((soft.shape[1] - int(ss.max()) - SYNCBITS) // FRAMESYMBOLS)
+    nframes = frames_available(soft)
     require(nframes >= 1, "no whole frame in the block")
     del soft
     receive_block(iq, nframes, cfg)  # warm-up of the decode half
@@ -715,6 +1063,13 @@ def main() -> int:
     checks.update(viterbi_cycle_check(dev, int(vit.size), seed=25))
     profile_block(iq, nframes, thr, "threshold")
     del iq
+    torch.cuda.empty_cache()
+
+    # ---- phases 6-8: wideband, edge carrier, pipelined block stream
+    for path_launches in (phase_wideband(dev, cfg), phase_edge(dev)):
+        for k, v in path_launches.items():
+            launches[k] += v
+    phase_pipelined(dev, nsamples, nframes, cfg)
     for k, v in launches.items():
         require(v > 0, f"kernel {k} never launched on the main path")
 
@@ -728,6 +1083,10 @@ def main() -> int:
                       "isee3_decoder_tpu/ops/viterbi_pallas_fused.py:157"),
         "viterbi_b": ("viterbi.cu",
                       "isee3_decoder_tpu/ops/viterbi_pallas_fused.py:203"),
+        "channelize": ("channelizer.cu",
+                       "isee3_decoder_tpu/ops/channelizer_pallas.py:177"),
+        "channelize2": ("channelizer.cu",
+                        "isee3_decoder_tpu/ops/channelizer_pallas.py:213"),
     }
     kernels = [
         {

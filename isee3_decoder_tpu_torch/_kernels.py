@@ -42,9 +42,11 @@ LAUNCHES: dict[str, int] = {
     "fano_walk": 0,
     "viterbi_a": 0,
     "viterbi_b": 0,
+    "channelize": 0,
+    "channelize2": 0,
 }
-#: pipeline stage ("pm", "csum", "fano", "viterbi") → "cuda" or "torch",
-#: last run
+#: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi") → "cuda"
+#: or "torch", last run
 backend_used: dict[str, str] = {}
 
 _lib: ctypes.CDLL | None = None
@@ -79,6 +81,9 @@ _SIGNATURES = {
     # nsteps, q1, q2, g1flip, g2flip, stream
     "viterbi_b_launch": (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
+    # wide, nwords, taps, twid, M, P, TS, oversample, nsamp, out, smem_bytes,
+    # stream
+    "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _L, _P, _I, _P),
 }
 
 

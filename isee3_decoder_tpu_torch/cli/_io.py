@@ -19,6 +19,11 @@ def read_exact(f, nbytes: int) -> bytes:
     return b"".join(chunks)
 
 
+def status(msg: str) -> None:
+    """Status on stderr so stdout stays a clean data pipe (README.txt:14)."""
+    print(msg, file=sys.stderr, flush=True)
+
+
 def run_main(main) -> None:
     """CLI entry wrapper: exit silently on closed stdout (SIGPIPE), like
     the C tools, instead of dumping a BrokenPipeError traceback."""

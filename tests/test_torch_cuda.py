@@ -16,6 +16,7 @@ from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import CodeSpec, DEFAULT_CODE, SYNC_STATE
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, prefix_cuda
+from isee3_decoder_tpu_torch.ops import channelizer, channelizer_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda, viterbi_fused
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import FanoParams, _fano_decode_packed
@@ -185,3 +186,94 @@ def test_viterbi_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="nsteps"):
         viterbi_cuda.cycle_b(m, torch.zeros((1, 2 * 14), dtype=torch.int32,
                                             device=dev), K15, 14)
+
+
+def _packed(dev, nwords: int, seed: int, lo: int = -20000, hi: int = 20000):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    iq = torch.randint(lo, hi, (2, nwords), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return (iq[0] & 0xFFFF) | (iq[1] << 16)
+
+
+def _assert_raw_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """At most 1 LSB apart on under 1 % of the samples: float32 rounding
+    at truncation boundaries (the kernel's FFT and the library's sum in
+    other orders)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.int16
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize(
+    "nchan,oversample,nframes,extra",
+    [(128, 1, 3 * 64 + 7, 0),  # whole tiles
+     (128, 1, 1000, 3),  # partial last tile, partial last frame
+     (128, 2, 1001, 70),
+     (64, 1, 777, 0),
+     (256, 2, 300, 5),
+     (32, 2, 515, 0)],
+)
+def test_k7_matches_plain(dev, nchan, oversample, nframes, extra):
+    packed = _packed(dev, nframes * nchan + extra, seed=nframes)
+    name = "channelize" if oversample == 1 else "channelize2"
+    n0 = _kernels.LAUNCHES[name]
+    got = channelizer_cuda.channelize_raw_fused(packed, nchan, 8,
+                                                oversample=oversample)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[name] == n0 + 1
+    assert _kernels.backend_used["channelizer"] == "cuda"
+    want = channelizer_cuda.channelize_raw_plain(packed, nchan, 8,
+                                                 oversample=oversample)
+    # the odd stream gains a frame when half a frame or more trails
+    nout = (nframes - 8 + 1 if oversample == 1
+            else 2 * (nframes - 8 + (extra >= nchan // 2)))
+    assert tuple(got.shape) == (nchan, 2 * nout)
+    _assert_raw_close(got, want)
+    with _kernels.plain_reference():
+        again = channelizer_cuda.channelize_raw_fused(packed, nchan, 8,
+                                                      oversample=oversample)
+    assert torch.equal(again, want)
+    assert _kernels.LAUNCHES[name] == n0 + 1
+
+
+@pytest.mark.parametrize("oversample", [1, 2])
+def test_k7_saturates_like_plain(dev, oversample):
+    """Full-scale input through taps of gain 4: both clip at ±32767, never
+    at −32768, and never wrap."""
+    nchan, P = 128, 8
+    taps = 4.0 * channelizer.default_taps(nchan, P, oversample)
+    for lo, hi, want0 in ((32000, 32768, 32767), (-32767, -32000, -32767)):
+        packed = _packed(dev, 300 * nchan, seed=1, lo=lo, hi=hi)
+        got = channelizer_cuda.channelize_raw_fused(packed, nchan, P, taps,
+                                                    oversample)
+        want = channelizer_cuda.channelize_raw_plain(packed, nchan, P, taps,
+                                                     oversample)
+        _assert_raw_close(got, want)
+        assert bool((got[0, 0::2] == want0).all())
+        assert int(got.min()) >= -32767
+
+
+def test_k7_other_tap_counts(dev):
+    """taps_per_branch other than 8, with a prototype of the caller's."""
+    nchan, P = 64, 5
+    rng = np.random.default_rng(0)
+    taps = (rng.normal(0, 0.05, nchan * P)).astype(np.float32)
+    packed = _packed(dev, 400 * nchan, seed=2)
+    got = channelizer_cuda.channelize_raw_fused(packed, nchan, P, taps)
+    want = channelizer_cuda.channelize_raw_plain(packed, nchan, P, taps)
+    _assert_raw_close(got, want)
+
+
+def test_k7_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    words = torch.zeros(2 * 128 * 100, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="power of two"):
+        channelizer_cuda.channelize_raw_fused(words, 96)
+    with pytest.raises(ValueError, match="contiguous"):
+        channelizer_cuda.channelize_raw_fused(words[::2], 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        channelizer_cuda.channelize_raw_fused(words, 256, 100)
+    with pytest.raises(ValueError, match="taps must have"):
+        channelizer_cuda.channelize_raw_fused(words, 128, 8,
+                                              np.zeros(100, np.float32))

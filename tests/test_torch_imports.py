@@ -55,7 +55,9 @@ def test_every_port_module_is_checked():
                  "ops/fano_cuda.py", "ops/prefix_cuda.py", "models/pipeline.py",
                  "ops/viterbi_inplace.py", "ops/viterbi_cuda.py",
                  "ops/viterbi_fused.py", "models/decode.py",
-                 "utils/timeformat.py", "cli/_io.py", "cli/decode.py"):
+                 "utils/timeformat.py", "cli/_io.py", "cli/decode.py",
+                 "ops/channelizer.py", "ops/channelizer_cuda.py",
+                 "cli/channelize.py", "utils/devicesignal.py"):
         assert want in names
 
 
