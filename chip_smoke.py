@@ -15,7 +15,12 @@ capture of 128 channel slots x 2^21 frames through the fused polyphase
 channelizer (kernel K7a) and the same chain
 (``receive_block_wideband``); an edge-carrier capture through the 2x
 oversampled bank (kernel K7b) and ``receive_block`` at the doubled
-channel rate; and three blocks through ``receive_blocks_pipelined``.
+channel rate; four blocks through ``receive_blocks_pipelined``; the
+clean, mid and threshold blocks again with
+``PipelineConfig(pm_backend="fused_scan")`` (kernel K9 runs the pm
+blocks after the cold start in one launch; the threshold block falls
+back to the block scan); and a narrowband block (128 channels at
+32,768 sps, n = 4096) whose locked blocks search with kernel K8.
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -26,14 +31,15 @@ version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs) and, where
 one PyTorch call computes the same function, that call's time; last,
-the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6 each end
-with a profile line: per-stage milliseconds of three runs of the block,
+the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9 and 10
+end with profile lines: per-stage milliseconds of three runs of the block,
 and the device busy time of one run under torch.profiler.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -67,6 +73,14 @@ I32_OPS_PER_S = 132 * 64 * 1.98e9
 # excluded
 ACS_OPS_PER_PAIR = 20
 FANO_OPS_PER_STEP = 30
+
+# narrowband path (phase 10): the reference's -r option at 32,768 sps,
+# binsize 8 -> n = 4096, below the 8192-sample chunk of the fused kernels,
+# so a locked block searches with K8 and spins down with K2
+NB_SAMPRATE = 32_768.0
+NB_BINSIZE = 8.0
+NB_CARRIER0 = 4000.0
+NB_SPACING = 37.0
 
 # wideband regime (the JAX package's bench.py): one capture of NCHAN slots
 # x 2^21 frames; edge-carrier path: 32 slots of 128 kHz at 4.096 Msps, so
@@ -127,10 +141,20 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def dft_ops(n: int, K: int) -> float:
+    """float32 operations per row for K bins of an n-point DFT: the
+    direct sum's complex MAC (8) per sample and bin, or a radix-2 FFT's
+    5·n·log2(n) for every bin, whichever is fewer — the least the search
+    must do, whatever form a kernel gives it."""
+    return min(8.0 * n * K, 5.0 * n * math.log2(n))
+
+
 def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int,
-                frames_seed: int = 0):
-    """(frames (F, 128) uint8, (nchan, 2*nsamples) int16 raw IQ on dev):
-    the same frames on every channel, carriers 20 kHz + 137 Hz·i."""
+                frames_seed: int = 0, samprate: float = SAMPRATE,
+                carrier0: float = 20_000.0, spacing: float = 137.0):
+    """(frames (F, 128) uint8, (nchan, 2*nsamples) int16 raw IQ on dev,
+    carriers): the same frames on every channel, carriers carrier0 +
+    spacing·i (the bench: 20 kHz + 137 Hz·i at 250 ksps)."""
     import torch
 
     from isee3_decoder_tpu_torch.utils.devicesignal import (
@@ -144,12 +168,12 @@ def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int,
         np.ascontiguousarray(np.broadcast_to(frames, (nchan, *frames.shape))),
         device=dev,
     )
-    carriers = torch.as_tensor(20_000.0 + 137.0 * np.arange(nchan),
+    carriers = torch.as_tensor(carrier0 + spacing * np.arange(nchan),
                                dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     iq = synthesize_iq_device(frames_dev, carriers, gen, nsamples,
-                              samprate=SAMPRATE, symrate=SYMRATE,
+                              samprate=samprate, symrate=SYMRATE,
                               noise_std=noise_std)
     return frames, to_raw_int16(iq), carriers
 
@@ -195,14 +219,15 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K1 amp off")
     require(float((c_k - c_p).abs().max()) <= 1e-2, "K1 cn0 off")
     require(err <= 1, "K1 baseband off by more than 1 LSB")
-    # reads the packed IQ, writes the int16 baseband; a complex MAC (8
-    # float32 operations) per sample and searched bin
+    # reads the packed IQ, writes the int16 baseband; the window bins'
+    # DFT, then the spin-down's phase step and rotation (8 per sample)
     out["pm_locked"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: carrier_cuda.pm_locked_fused(*args), 20),
         plain_ms=cuda_ms(lambda: carrier_cuda.pm_locked_plain(*args), 5),
         library_ms=None,
-        **bound(nchan * n * (4 + 2), 8.0 * K * n * nchan, F32_OPS_PER_S),
+        **bound(nchan * n * (4 + 2), nchan * (dft_ops(n, K) + 8.0 * n),
+                F32_OPS_PER_S),
     )
 
     # ---- K2: spin-down at a given carrier
@@ -305,6 +330,138 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
                 + st.numel() * 4, steps * FANO_OPS_PER_STEP, I32_OPS_PER_S),
     )
     out.update(check_viterbi(dev))
+    return out
+
+
+def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
+    """Phase 2's K8/K9 part.  K8 (the windowed DFT search alone) at the
+    narrowband path's shape, 128 x 4096, K = 53, beside K1 and the whole
+    K8 + peak + K2 block step at the same n; K9 (the pm scan in one
+    launch) at the bench shape, 128 x 32 x 65,536, K = 107.  Tolerances
+    of tests/test_carrier_raw.py: peak bins and lock/ok lanes equal,
+    frequency and centre within 5e-3 Hz, C/N0 within 1e-2 dB, amplitude
+    within rtol 1e-5, baseband (K9: from the prefix sum's differences)
+    within 1 LSB."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda
+
+    out = {}
+    # ---- K8 at n = 4096
+    cfg = carrier.PMConfig(samprate=NB_SAMPRATE, binsize=NB_BINSIZE,
+                           search_width=200.0)
+    n, K = cfg.fftsize, carrier._window_bins(cfg)
+    _, raw, carriers = bench_block(dev, nchan, n, NOISE_CLEAN, seed=8,
+                                   samprate=NB_SAMPRATE, carrier0=NB_CARRIER0,
+                                   spacing=NB_SPACING)
+    packed = carrier.pack_raw(raw)
+    carry = carrier.PMCarry(search_center=carriers,
+                            cn0=torch.full_like(carriers, 60.0))
+    require(carrier._fast_search_ok(carry, cfg), "K8 inputs not locked")
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    # the main path's call: K8 with the peak + Quinn pass in its launch
+    search = (packed, first - 1, last - first, K, cfg.samprate,
+              cfg.actual_binsize)
+    s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*search)
+    s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*search)
+    s_d = carrier_cuda.windowed_dft_raw(packed, first - 1, K)
+    err = float((s_k - s_p).abs().max())
+    rel = err / float(s_p.abs().max())
+    log(f"  K8 windowed_dft: {nchan} x {n}, K = {K}: peak bins equal "
+        f"{bool(torch.equal(pk_k, pk_p))}, max |dfreq| "
+        f"{float((f_k - f_p).abs().max()):.3e} Hz, max |dbin| {err:.3e} "
+        f"({rel:.3e} of the largest bin), bins alone == with the peak pass "
+        f"{bool(torch.equal(s_d, s_k))}")
+    require(torch.equal(pk_k, pk_p), "K8 peak bins differ")
+    require(float((f_k - f_p).abs().max()) <= 5e-3, "K8 freq off")
+    require(rel <= 1e-5, "K8 bins off")
+    require(torch.equal(s_d, s_k), "K8 bins differ with the peak pass")
+    iq = carrier.iq_from_interleaved(raw)
+    out["windowed_dft"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: carrier_cuda.windowed_search_raw(*search), 50),
+        plain_ms=cuda_ms(lambda: carrier_cuda.windowed_search_raw_plain(
+            *search), 10),
+        # every bin of the block, a superset of the K the search needs
+        library_ms=cuda_ms(lambda: torch.fft.fft(iq, dim=-1), 50),
+        # packed words in, K complex bins and the peak's frequency out;
+        # the window bins' DFT (the peak's few operations per bin aside)
+        **bound(nchan * n * 4 + nchan * (K * 8 + 4), nchan * dft_ops(n, K),
+                F32_OPS_PER_S),
+    )
+
+    def k8_block():
+        f, _ = carrier.find_carrier_windowed_raw(packed, carry, cfg)
+        return carrier_cuda.spin_down_fused(packed, f, cfg.samprate)
+
+    k1_args = (packed, first - 1, last - first, K, cfg.samprate,
+               cfg.actual_binsize)
+    r = out["windowed_dft"]
+    log(f"  K8 with its peak pass {r['ms']:.4f} ms (bins alone "
+        f"{cuda_ms(lambda: carrier_cuda.windowed_dft_raw(packed, first - 1, K), 50):.4f}"
+        f", plain {r['plain_ms']:.4f}, torch.fft.fft "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+        f"{r['bound_by']}); locked block at n = {n}: K1 "
+        f"{cuda_ms(lambda: carrier_cuda.pm_locked_fused(*k1_args), 50):.4f} ms,"
+        f" K8 + peak + K2 {cuda_ms(k8_block, 50):.4f} ms")
+    del packed, raw, iq, s_k, s_p, s_d
+
+    # ---- K9 at the bench shape
+    cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
+    n, K, T = cfg.fftsize, carrier._window_bins(cfg), 32
+    _, raw, _ = bench_block(dev, nchan, T * n, NOISE_CLEAN, seed=9)
+    blocks = raw.reshape(nchan, T, 2 * n)
+    carry1, out0 = carrier.pm_demod_block_raw(
+        carrier.init_carry(nchan, cfg, device=dev), blocks[:, 0], cfg)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    args = (carrier.pack_raw(blocks), out0.baseband, init, cfg.samprate,
+            cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
+    cs_k, st_k, tot_k = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+    cs_p, st_p, tot_p = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
+    bb_k = (cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16)
+    bb_p = (cs_p[:, 1:] - cs_p[:, :-1]).to(torch.int16)
+    err = int(raw_diff(bb_k, bb_p)[0])
+    thr = cfg.cn0_threshold
+    lanes = {name: float((st_k[..., i] - st_p[..., i]).abs().max())
+             for i, name in enumerate(("amp", "cn0", "freq", "ok", "_",
+                                       "centre"))}
+    log(f"  K9 pm_scan: {nchan} x {T} x {n}, K = {K}: ok lanes equal "
+        f"{bool(torch.equal(st_k[..., 3], st_p[..., 3]))} (all ok "
+        f"{bool((st_k[:, 1:, 3] > 0).all())}), locks equal "
+        f"{bool(torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr))}, max "
+        f"|dfreq| {lanes['freq']:.3e} Hz, |dcentre| {lanes['centre']:.3e} Hz,"
+        f" |dcn0| {lanes['cn0']:.3e} dB, max amp rel "
+        f"{float(((st_k[:, 1:, 0] - st_p[:, 1:, 0]) / st_p[:, 1:, 0]).abs().max()):.3e}"
+        f", max |dbaseband| {err} LSB, totals equal the last column "
+        f"{bool(torch.equal(tot_k, cs_k[:, -1]))}")
+    require(bool((st_k[:, 1:, 3] > 0).all()), "K9: a clean block failed its "
+            "window")
+    require(torch.equal(st_k[..., 3], st_p[..., 3]), "K9 ok lanes differ")
+    require(torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr),
+            "K9 locks differ")
+    require(lanes["freq"] <= 5e-3 and lanes["centre"] <= 5e-3, "K9 freq off")
+    require(lanes["cn0"] <= 1e-2, "K9 cn0 off")
+    require(torch.allclose(st_k[..., 0], st_p[..., 0], rtol=1e-5, atol=0),
+            "K9 amp off")
+    require(err <= 1, "K9 baseband off by more than 1 LSB")
+    require(torch.equal(tot_k, cs_k[:, -1]), "K9 totals differ from the "
+            "edge-extension column")
+    del bb_k, bb_p, cs_p, st_p
+    out["pm_scan"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1), 5),
+        plain_ms=cuda_ms(lambda: carrier_cuda.pm_scan_locked_plain(
+            *args, tail=1), 2),
+        library_ms=None,
+        # packed words and block 0's baseband in, the int32 prefix sum
+        # out; in blocks 1..T-1 the window bins' DFT and the spin-down
+        **bound(nchan * T * n * 4 + nchan * n * 2 + cs_k.numel() * 4,
+                nchan * (T - 1) * (dft_ops(n, K) + 8.0 * n), F32_OPS_PER_S),
+    )
+    r = out["pm_scan"]
+    log(f"  K9 {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.3f} by {r['bound_by']})")
     return out
 
 
@@ -491,7 +648,12 @@ def stage_ms(iq, nframes: int, cfg, front=None) -> dict:
         symdemod_scan_csum,
         window_samples,
     )
-    from isee3_decoder_tpu_torch.ops.carrier import init_carry, pm_demod_scan
+    from isee3_decoder_tpu_torch.ops.carrier import (
+        _scan_fused_capable,
+        init_carry,
+        pm_demod_scan,
+        pm_demod_scan_csum,
+    )
     from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 
     out = {}
@@ -512,11 +674,16 @@ def stage_ms(iq, nframes: int, cfg, front=None) -> dict:
     blocks = iq[:, : nblocks * 2 * n].reshape(B, nblocks, 2 * n)
     nwindows = max((nblocks * n - initial_firstsample(cfg.sym))
                    // window_samples(cfg.sym) - 1, 0)
-    _, pm_out = pm_demod_scan(init_carry(B, cfg.pm, device=iq.device), blocks,
-                              cfg.pm)
-    mark("pm_scan")
-    csum = prefix_sum_blocks(pm_out.baseband, tail=1)
-    mark("prefix_sum")
+    carry = init_carry(B, cfg.pm, device=iq.device)
+    if cfg.pm_backend == "fused_scan" and _scan_fused_capable(cfg.pm, n,
+                                                               nblocks):
+        csum = pm_demod_scan_csum(carry, blocks, cfg.pm, tail=1)[1]
+        mark("pm_scan+csum (K9)")
+    else:
+        _, pm_out = pm_demod_scan(carry, blocks, cfg.pm)
+        mark("pm_scan")
+        csum = prefix_sum_blocks(pm_out.baseband, tail=1)
+        mark("prefix_sum")
     _, sym_out = symdemod_scan_csum(csum, cfg.sym, nwindows)
     soft = sym_out.soft.transpose(0, 1).reshape(B, -1)
     mark("symdemod")
@@ -869,7 +1036,8 @@ def phase_edge(dev, nchan: int = EDGE_NCHAN, samprate: float = EDGE_SAMPRATE,
     return launches
 
 
-def phase_pipelined(dev, nsamples: int, nframes: int, cfg, nblocks: int = 4):
+def phase_pipelined(dev, nsamples: int, nframes: int, cfg, nblocks: int = 4,
+                    label: str = "8"):
     """Phase 8: nblocks clean blocks through receive_blocks_pipelined
     (depth 2) give, in order, the records of as many receive_block calls
     (more blocks than depth + 1, so a pinned result buffer is used twice);
@@ -909,10 +1077,168 @@ def phase_pipelined(dev, nsamples: int, nframes: int, cfg, nblocks: int = 4):
         require(bool(rp.good.all()), f"pipelined: block {i} has a bad frame")
     require(not np.array_equal(serial[0][0].data, serial[1][0].data),
             "pipelined: the blocks carry the same frames, order is unchecked")
-    log(f"phase 8 pipelined: {nblocks} clean blocks, depth 2 == receive_block "
+    log(f"phase {label} pipelined: {nblocks} clean blocks, depth 2 == receive_block "
         f"block by block; ms per block: plain loop {_ms(walls['loop'])}, "
         f"pipelined {_ms(walls['pipelined'])} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_fused_scan(dev, nsamples: int, nframes: int, pm, sym, rec_thr):
+    """Phase 9: the clean and mid bench blocks with
+    pm_backend="fused_scan" (kernel K9 for blocks 1..31) against "auto"
+    on the same IQ: frames, good flags and labels equal on all 128
+    channels; per block K9 once, K2 once (the cold-start block), no K1,
+    no K3; block times of both in turns, a stage profile and device busy
+    of the fused block; then the pipelined driver with the fused scan;
+    then a threshold block, whose unlocked channels send the call to the
+    block scan, giving phase 5's frames (``rec_thr``).  Returns the
+    launches of the counted runs."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        receive_block,
+    )
+
+    t0 = time.perf_counter()
+    launches = {}
+    for regime, noise, seed, dcfg in (
+            ("clean", NOISE_CLEAN, 0, DecodeConfig()),
+            ("mid", NOISE_MID, 99, DecodeConfig.strict_labels())):
+        auto = PipelineConfig(pm=pm, sym=sym, decode=dcfg)
+        fused = PipelineConfig(pm=pm, sym=sym, decode=dcfg,
+                               pm_backend="fused_scan")
+        frames, iq, _ = bench_block(dev, NCHAN, nsamples, noise, seed=seed)
+        receive_block(iq, nframes, fused)  # warm-up
+        rec_f, t_f, lf, bf = timed_runs(lambda: receive_block(iq, nframes,
+                                                              fused))
+        rec_a, t_a, _, _ = timed_runs(lambda: receive_block(iq, nframes, auto))
+        t_f2 = timed_runs(lambda: receive_block(iq, nframes, fused))[1]
+        good, matched = frame_stats(rec_f, frames, NCHAN, nframes)
+        log(f"phase 9 fused scan, {regime}: {NCHAN} ch x {nframes} frames, "
+            f"receive_block fused {_ms(t_f)} / {_ms(t_f2)} ms, auto "
+            f"{_ms(t_a)} ms (same IQ, in turns); good {good}/"
+            f"{rec_f.good.size}, matched {matched}; decoders "
+            f"{decoder_mix(rec_f)}; launches {lf}; backend {bf}")
+        for field in ("data", "good", "decoder", "start_symbol"):
+            require(np.array_equal(getattr(rec_f, field), getattr(rec_a, field)),
+                    f"fused scan {regime}: differs from auto in {field}")
+        require(matched == good, f"fused scan {regime}: a good frame was not "
+                "sent")
+        require(lf["pm_scan"] == 1 and lf["spin_down"] == 1
+                and lf["pm_locked"] == 0 and lf["prefix_sum"] == 0,
+                f"fused scan {regime}: launches per block {lf}")
+        require(bf.get("pm_scan") == "cuda" and bf.get("pm") == "cuda",
+                f"fused scan {regime}: K9 did not run on CUDA")
+        for k, v in lf.items():
+            launches[k] = launches.get(k, 0) + v
+        profile_block(iq, nframes, fused, f"{regime} fused scan",
+                      run=lambda: receive_block(iq, nframes, fused))
+        del iq
+    log(f"  fused scan == auto over {NCHAN} channels, clean and mid: bytes, "
+        "good flags, decoder labels, start symbols")
+
+    fused = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig(),
+                           pm_backend="fused_scan")
+    phase_pipelined(dev, nsamples, nframes, fused, label="9 fused scan")
+
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_THRESHOLD, seed=11)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    rec, _ = receive_block(iq, nframes, fused)
+    torch.cuda.synchronize()
+    lt, bt = dict(_kernels.LAUNCHES), dict(_kernels.backend_used)
+    log(f"phase 9 fused scan, threshold: launches {lt}; backend {bt}; good "
+        f"{int(rec.good.sum())}/{rec.good.size}; decoders {decoder_mix(rec)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(bt.get("pm_scan") == "fallback" and lt["pm_scan"] == 1
+            and lt["prefix_sum"] == 1,
+            "fused scan threshold: the fallback was not taken")
+    for field in ("data", "good", "decoder", "start_symbol"):
+        require(np.array_equal(getattr(rec, field), getattr(rec_thr, field)),
+                f"fused scan threshold: differs from phase 5 in {field}")
+    log("  fused scan threshold block: fallback taken, frames == phase 5's")
+    return launches
+
+
+def phase_narrowband(dev, nchan: int = NCHAN):
+    """Phase 10: 128 channels at 32,768 sps, binsize 8 -> n = 4096 (67 pm
+    blocks in 8.39 s), carriers 4000 Hz + 37 Hz·i (channels 4, 12, ...
+    sit on a half bin; clean noise still locks them) through
+    receive_block: each locked block searches with K8 (its peak pass in
+    the same launch) and spins down with K2, no K1.  Then the same block
+    with K1 for every locked block, timed in turns, frames equal.
+    Returns the launches of the counted run."""
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        demod_to_symbols,
+        receive_block,
+    )
+    from isee3_decoder_tpu_torch.ops.carrier import PMConfig
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+
+    t0 = time.perf_counter()
+    cfg = PipelineConfig(
+        pm=PMConfig(samprate=NB_SAMPRATE, binsize=NB_BINSIZE,
+                    search_width=200.0),
+        sym=SymConfig(samprate=NB_SAMPRATE, symrate=SYMRATE),
+        decode=DecodeConfig(),
+    )
+    nsamples = int((NFRAMES_TX * 2048 + 400) / SYMRATE * NB_SAMPRATE)
+    frames, iq, carriers = bench_block(dev, nchan, nsamples, NOISE_CLEAN,
+                                       seed=10, samprate=NB_SAMPRATE,
+                                       carrier0=NB_CARRIER0,
+                                       spacing=NB_SPACING)
+    soft, _, freq, cn0 = demod_to_symbols(iq, cfg)  # warm-up; frames
+    nframes = frames_available(soft)
+    require(nframes >= 1, "narrowband: no whole frame in the block")
+    nblocks = freq.shape[0]
+    rec, times, launches, backends = timed_runs(
+        lambda: receive_block(iq, nframes, cfg))
+    good, matched = frame_stats(rec, frames, nchan, nframes)
+    log(f"phase 10 narrowband: {nchan} ch at {NB_SAMPRATE:.0f} sps, n = "
+        f"{cfg.pm.fftsize}, {nblocks} pm blocks, {nframes} frames per "
+        f"channel, receive_block {_ms(times)} ms (counted run, then 4 more); "
+        f"max |carrier - found| {float((freq[-1] - carriers).abs().max()):.3f}"
+        f" Hz; good {good}/{rec.good.size}, matched {matched}; decoders "
+        f"{decoder_mix(rec)}; launches {launches}; backend {backends} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(bool((cn0[1:] > cfg.pm.cn0_threshold).all()),
+            "narrowband: a channel lost lock")
+    require(matched == rec.good.size, "narrowband: not every frame decoded")
+    require(launches["windowed_dft"] == nblocks - 1
+            and launches["spin_down"] == nblocks
+            and launches["pm_locked"] == 0,
+            f"narrowband: launches per block {launches}")
+    require(backends.get("search") == "cuda", "narrowband: K8 not on CUDA")
+    profile_block(iq, nframes, cfg, "narrowband")
+
+    # what the K8 branch costs end to end: the same IQ with every locked
+    # block on K1 (the dispatch for n a multiple of the chunk), in turns
+    # with the K8 dispatch; a measurement, not a path of the package
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+
+    chunk = carrier_cuda.SCAN_CHUNK
+    carrier_cuda.SCAN_CHUNK = 256
+    try:
+        rec1, t_k1, l_k1, _ = timed_runs(lambda: receive_block(iq, nframes,
+                                                               cfg))
+        profile_block(iq, nframes, cfg, "narrowband, K1 dispatch")
+    finally:
+        carrier_cuda.SCAN_CHUNK = chunk
+    t_k8 = timed_runs(lambda: receive_block(iq, nframes, cfg))[1]
+    log(f"  narrowband receive_block with K1 for the locked blocks "
+        f"{_ms(t_k1)} ms against K8 + K2 {_ms(t_k8)} ms (same IQ, in turns);"
+        f" launches {l_k1}")
+    require(l_k1["pm_locked"] == nblocks - 1 and l_k1["windowed_dft"] == 0,
+            f"narrowband K1 dispatch: launches {l_k1}")
+    for field in ("data", "good", "decoder", "start_symbol"):
+        require(np.array_equal(getattr(rec1, field), getattr(rec, field)),
+                f"narrowband: K1 and K8 dispatch differ in {field}")
+    return launches
 
 
 def main() -> int:
@@ -958,6 +1284,7 @@ def main() -> int:
     # ---- phase 2: kernels vs plain PyTorch on the card
     t0 = time.perf_counter()
     checks = check_kernels(dev)
+    checks.update(check_search_kernels(dev))
     checks.update(check_channelizer(dev))
     log(f"phase 2 kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)")
 
@@ -1026,6 +1353,7 @@ def main() -> int:
     frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_THRESHOLD, seed=11)
     receive_block(iq, nframes, thr)  # warm-up
     rec, t_thr, launches_thr, backends_thr = timed_receive(iq, nframes, thr)
+    rec_thr = rec
     for k, v in launches_thr.items():
         launches[k] += v
     good, matched = frame_stats(rec, frames, NCHAN, nframes)
@@ -1070,6 +1398,13 @@ def main() -> int:
         for k, v in path_launches.items():
             launches[k] += v
     phase_pipelined(dev, nsamples, nframes, cfg)
+
+    # ---- phases 9-10: the fused pm scan (K9), the narrowband path (K8)
+    for path_launches in (phase_fused_scan(dev, nsamples, nframes, pm, sym,
+                                           rec_thr),
+                          phase_narrowband(dev)):
+        for k, v in path_launches.items():
+            launches[k] += v
     for k, v in launches.items():
         require(v > 0, f"kernel {k} never launched on the main path")
 
@@ -1087,6 +1422,9 @@ def main() -> int:
                        "isee3_decoder_tpu/ops/channelizer_pallas.py:177"),
         "channelize2": ("channelizer.cu",
                         "isee3_decoder_tpu/ops/channelizer_pallas.py:213"),
+        "windowed_dft": ("carrier.cu",
+                         "isee3_decoder_tpu/ops/carrier_pallas.py:63"),
+        "pm_scan": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:363"),
     }
     kernels = [
         {

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch
-headers), so one ``nvcc`` call builds them into a shared library in a
-few seconds; ``ctypes`` binds it.  The library lands in
+headers): one ``nvcc`` per source, all started together, compiles them
+and one more links the shared library, in a few seconds; ``ctypes``
+binds it.  The library lands in
 ``<repo>/build/torch_kernels/`` (git-ignored) under a name carrying a
 hash of the sources and flags, so an edited source rebuilds at the next
 first use and an unchanged one loads straight away.
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 #: kernel name → launches since the last reset_launches()
@@ -44,9 +45,13 @@ LAUNCHES: dict[str, int] = {
     "viterbi_b": 0,
     "channelize": 0,
     "channelize2": 0,
+    "windowed_dft": 0,
+    "pm_scan": 0,
 }
-#: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi") → "cuda"
-#: or "torch", last run
+#: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi", and
+#: "search" for K8, "pm_scan" for K9) → "cuda" or "torch", last run;
+#: "pm_scan" reads "fallback" when the fused scan's result was discarded
+#: for the block scan (carrier.pm_demod_scan_csum)
 backend_used: dict[str, str] = {}
 
 _lib: ctypes.CDLL | None = None
@@ -84,6 +89,14 @@ _SIGNATURES = {
     # wide, nwords, taps, twid, M, P, TS, oversample, nsamp, out, smem_bytes,
     # stream
     "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _L, _P, _I, _P),
+    # packed, row_stride, iw, B, n, K, flip, samprate, binsize, spec, stat,
+    # cyc, stream
+    "windowed_dft_launch": (_P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+                            _P),
+    # packed, row_stride, bb0, init, B, T, n, K, samprate, binsize, width,
+    # thr, top, flip, tail, csum, stat, tot, stream
+    "pm_scan_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                       _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -149,25 +162,43 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build_library() -> pathlib.Path:
     """Compile csrc/*.cu into the build directory unless a library for
-    the current sources already exists there; return its path."""
+    the current sources already exists there; return its path.  Each
+    source compiles in an nvcc of its own, all at once; one more links."""
     global last_build_seconds
     lib_path = BUILD_DIR / f"libisee3_kernels_{_source_hash()}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"obj.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [work / f"{src.stem}.o" for src in _sources()]
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(_sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        tmp.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
     return lib_path
 
 

@@ -124,44 +124,33 @@ __device__ __forceinline__ float quinn_tau(float x) {
          k * logf((x + 1.0f - r) / (x + 1.0f + r));
 }
 
-// ---- K1 pass 1: windowed DFT -------------------------------------------
+// ---- K1 pass 1 and K8: windowed DFT -----------------------------------
 // spec[b][k] = sum_i x[i] exp(-2 pi j f i / n), f = first1_b + k, by the
 // split X[f] = sum_l W_n^{f l} sum_h x[256h+l] W_nhi^{(f mod nhi) h}.
 // chirp: NULL, or n de-chirp phasors exp(-2 pi j phi(i)) that rotate the
 // DATA first (the chirp phase has an h*l cross term, so it cannot fold
 // into the two DFT factors).
-__global__ void dft_kernel(const int32_t* __restrict__ packed, int row_stride,
-                           const int32_t* __restrict__ iw, int n, int K,
-                           int flip, const float2* __restrict__ chirp,
-                           float2* __restrict__ spec) {
-  extern __shared__ float2 smem[];
+//
+// One thread's share of the DFT_KT bins f0 .. f0+DFT_KT-1: column l of
+// the split, summed over the nhi rows (twiddles tw[j] = W_nhi^j in shared
+// memory), turned by the outer twiddle and summed over the warp.  Lane 0
+// of each warp returns the warp's sums in v[].
+__device__ __forceinline__ void dft_columns(const int32_t* __restrict__ row,
+                                            int n, int flip,
+                                            const float2* __restrict__ chirp,
+                                            const float2* tw, int f0, int l,
+                                            float2 v[DFT_KT]) {
   const int nhi = n >> 8;
-  float2* tw = smem;                    // nhi twiddles W_nhi^j
-  float2* red = smem + nhi;             // (DFT_THREADS/32) x DFT_KT partials
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.x * DFT_KT;
-  const int l = threadIdx.x;
-  const int first1 = iw[2 * b];
-
-  for (int j = threadIdx.x; j < nhi; j += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * (double)j / (double)nhi, &s, &c);
-    tw[j] = make_float2((float)c, (float)-s);
-  }
-  __syncthreads();
-
   int q[DFT_KT], idx[DFT_KT];
   float ar[DFT_KT], ai[DFT_KT];
 #pragma unroll
   for (int k = 0; k < DFT_KT; ++k) {
-    int f = first1 + k0 + k;
-    int fm = f % nhi;
+    int fm = (f0 + k) % nhi;
     q[k] = fm < 0 ? fm + nhi : fm;
     idx[k] = 0;
     ar[k] = 0.0f;
     ai[k] = 0.0f;
   }
-  const int32_t* row = packed + (size_t)b * row_stride;
   for (int h = 0; h < nhi; ++h) {
     float xr, xi;
     unpack_iq(row[h * 256 + l], flip, xr, xi);
@@ -181,11 +170,9 @@ __global__ void dft_kernel(const int32_t* __restrict__ packed, int row_stride,
     }
   }
   // outer twiddle W_n^{(f mod n) l}, exact: (f mod n) * l < 256 n < 2^31
-  const int warp = l >> 5, lane = l & 31;
 #pragma unroll
   for (int k = 0; k < DFT_KT; ++k) {
-    int f = first1 + k0 + k;
-    int fm = f % n;
+    int fm = (f0 + k) % n;
     fm = fm < 0 ? fm + n : fm;
     int ph = (int)(((long long)fm * l) % n);
     double s, c;
@@ -197,7 +184,40 @@ __global__ void dft_kernel(const int32_t* __restrict__ packed, int row_stride,
       vr += __shfl_down_sync(0xffffffffu, vr, off);
       vi += __shfl_down_sync(0xffffffffu, vi, off);
     }
-    if (lane == 0) red[warp * DFT_KT + k] = make_float2(vr, vi);
+    v[k] = make_float2(vr, vi);
+  }
+}
+
+// tw[j] = W_nhi^j, j < nhi, filled by the block
+__device__ __forceinline__ void dft_twiddles(float2* tw, int nhi) {
+  for (int j = threadIdx.x; j < nhi; j += blockDim.x) {
+    double s, c;
+    sincospi(2.0 * (double)j / (double)nhi, &s, &c);
+    tw[j] = make_float2((float)c, (float)-s);
+  }
+}
+
+// grid (bin tiles, B), DFT_THREADS threads; first1_b = iw[iw_stride * b]
+__global__ void dft_kernel(const int32_t* __restrict__ packed, int row_stride,
+                           const int32_t* __restrict__ iw, int iw_stride, int n,
+                           int K, int flip, const float2* __restrict__ chirp,
+                           float2* __restrict__ spec) {
+  extern __shared__ float2 smem[];
+  const int nhi = n >> 8;
+  float2* tw = smem;                    // nhi twiddles W_nhi^j
+  float2* red = smem + nhi;             // (DFT_THREADS/32) x DFT_KT partials
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * DFT_KT;
+  const int l = threadIdx.x;
+  dft_twiddles(tw, nhi);
+  __syncthreads();
+  float2 v[DFT_KT];
+  dft_columns(packed + (size_t)b * row_stride, n, flip, chirp, tw,
+              iw[(size_t)iw_stride * b] + k0, l, v);
+  const int warp = l >> 5, lane = l & 31;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < DFT_KT; ++k) red[warp * DFT_KT + k] = v[k];
   }
   __syncthreads();
   if (l < DFT_KT && k0 + l < K) {
@@ -211,6 +231,23 @@ __global__ void dft_kernel(const int32_t* __restrict__ packed, int row_stride,
 }
 
 // ---- K1 pass 2: masked last-max peak + Quinn ---------------------------
+// Quinn's second estimator over the peak bin and its neighbours -> Hz
+__device__ __forceinline__ float quinn_freq(float2 sp, float2 sn, float2 sm,
+                                            int peak_bin, float samprate,
+                                            float binsize) {
+  float maxenergy = sp.x * sp.x + sp.y * sp.y;
+  float safe = maxenergy > 0.0f ? maxenergy : 1.0f;
+  float ap = (sn.x * sp.x + sn.y * sp.y) / safe;
+  float dp = -ap / (1.0f - ap);
+  float am = (sm.x * sp.x + sm.y * sp.y) / safe;
+  float dm = am / (1.0f - am);
+  float d = (dp + dm) * 0.5f + quinn_tau(dp * dp) - quinn_tau(dm * dm);
+  if (!(maxenergy > 0.0f)) d = 0.0f;
+  float freq = binsize * ((float)peak_bin + d);
+  if (freq > samprate / 2.0f) freq -= samprate;
+  return freq;
+}
+
 __global__ void peak_kernel(const float2* __restrict__ spec,
                             const int32_t* __restrict__ iw, int B, int K,
                             float samprate, float binsize,
@@ -230,23 +267,42 @@ __global__ void peak_kernel(const float2* __restrict__ spec,
       pk = k;
     }
   }
-  float2 sp = S[pk];
-  float2 sn = S[min(pk + 1, K - 1)];
-  float2 sm = S[max(pk - 1, 0)];
-  float maxenergy = sp.x * sp.x + sp.y * sp.y;
-  float safe = maxenergy > 0.0f ? maxenergy : 1.0f;
-  float ap = (sn.x * sp.x + sn.y * sp.y) / safe;
-  float dp = -ap / (1.0f - ap);
-  float am = (sm.x * sp.x + sm.y * sp.y) / safe;
-  float dm = am / (1.0f - am);
-  float d = (dp + dm) * 0.5f + quinn_tau(dp * dp) - quinn_tau(dm * dm);
-  if (!(maxenergy > 0.0f)) d = 0.0f;
-  float peak = (float)(first1 + pk);
-  float freq = binsize * (peak + d);
-  if (freq > samprate / 2.0f) freq -= samprate;
+  float freq = quinn_freq(S[pk], S[min(pk + 1, K - 1)], S[max(pk - 1, 0)],
+                          first1 + pk, samprate, binsize);
   stat[4 * b + 2] = freq;
-  stat[4 * b + 3] = peak;
+  stat[4 * b + 3] = (float)(first1 + pk);
   cyc[b] = __fdiv_rn(freq, samprate);
+}
+
+// Five-moment spin-down finish (the JAX package's _moments_cn0) from the
+// sums s[] of sr, si, sr^2, si^2, sr*si over n samples -> amp, C/N0 and the
+// unit phasor conj(dc)/amp = (ur, ui)
+__device__ __forceinline__ void finish_moments(const double s[5], int n,
+                                               float samprate, float& amp,
+                                               float& cn0, float& ur,
+                                               float& ui) {
+  const float inv = (float)(1.0 / (double)n);
+  float m_r = (float)s[0] * inv, m_i = (float)s[1] * inv;
+  float m_rr = (float)s[2] * inv, m_ii = (float)s[3] * inv;
+  float m_ri = (float)s[4] * inv;
+  float amp2 = m_r * m_r + m_i * m_i;
+  amp = sqrtf(amp2);
+  float safe2 = amp2 > 0.0f ? amp2 : 1.0f;
+  float e_rot2 =
+      (m_rr * m_r * m_r + 2.0f * m_ri * m_r * m_i + m_ii * m_i * m_i) / safe2;
+  float var = fmaxf(e_rot2 - amp2, amp2 * 3e-7f + 1e-30f);
+  cn0 = (10.0f / 2.30258509f) * logf(samprate * amp2 / (2.0f * var));
+  float safe_amp = amp > 0.0f ? amp : 1.0f;
+  ur = amp > 0.0f ? m_r / safe_amp : 1.0f;
+  ui = amp > 0.0f ? -m_i / safe_amp : 0.0f;
+}
+
+// Q axis of the rotated sample, -3 dB, truncated toward zero, saturated
+__device__ __forceinline__ int emit_sample(float sr, float si, float ur,
+                                           float ui) {
+  float rot_i = sr * ui + si * ur;  // imag(spun * unit)
+  float v = truncf(rot_i * 0.70710677f);
+  return (int)fminf(fmaxf(v, -32768.0f), 32767.0f);
 }
 
 // ---- spin-down pass 1: per-chunk partial moments ------------------------
@@ -304,20 +360,8 @@ __global__ void emit_kernel(const int32_t* __restrict__ packed, int row_stride,
     double s[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
     for (int k = 0; k < nchunk; ++k)
       for (int m = 0; m < 5; ++m) s[m] += mom[((size_t)b * nchunk + k) * 5 + m];
-    const float inv = (float)(1.0 / (double)n);
-    float m_r = (float)s[0] * inv, m_i = (float)s[1] * inv;
-    float m_rr = (float)s[2] * inv, m_ii = (float)s[3] * inv;
-    float m_ri = (float)s[4] * inv;
-    float amp2 = m_r * m_r + m_i * m_i;
-    float amp = sqrtf(amp2);
-    float safe2 = amp2 > 0.0f ? amp2 : 1.0f;
-    float e_rot2 =
-        (m_rr * m_r * m_r + 2.0f * m_ri * m_r * m_i + m_ii * m_i * m_i) / safe2;
-    float var = fmaxf(e_rot2 - amp2, amp2 * 3e-7f + 1e-30f);
-    float cn0 = (10.0f / 2.30258509f) * logf(samprate * amp2 / (2.0f * var));
-    float safe_amp = amp > 0.0f ? amp : 1.0f;
-    unit[0] = amp > 0.0f ? m_r / safe_amp : 1.0f;   // ur: unit = conj(dc)/amp
-    unit[1] = amp > 0.0f ? -m_i / safe_amp : 0.0f;  // ui
+    float amp, cn0;
+    finish_moments(s, n, samprate, amp, cn0, unit[0], unit[1]);
     if (chunk == 0) {
       stat[(size_t)stat_stride * b + 0] = amp;
       stat[(size_t)stat_stride * b + 1] = cn0;
@@ -335,10 +379,7 @@ __global__ void emit_kernel(const int32_t* __restrict__ packed, int row_stride,
     if (idx < n) {
       float sr, si;
       spun_sample(row[idx], idx, c, c256, dop != 0.0, ch, flip, sr, si);
-      float rot_i = sr * ui + si * ur;  // imag(spun * unit)
-      float v = truncf(rot_i * 0.70710677f);
-      v = fminf(fmaxf(v, -32768.0f), 32767.0f);
-      out[idx] = (int16_t)v;
+      out[idx] = (int16_t)emit_sample(sr, si, ur, ui);
     }
   }
 }
@@ -377,8 +418,8 @@ extern "C" int pm_locked_launch(const int32_t* packed, int row_stride,
       dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((K + DFT_KT - 1) / DFT_KT, B);
-  dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, n, K, flip,
-                                             (const float2*)chirp,
+  dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, 2, n, K,
+                                             flip, (const float2*)chirp,
                                              (float2*)spec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -398,4 +439,358 @@ extern "C" int spin_down_launch(const int32_t* packed, int row_stride,
                                 double* mom, void* stream) {
   return (int)spin_launch(packed, row_stride, cyc, B, n, samprate, flip, dop,
                           bb, stat, 2, mom, (cudaStream_t)stream);
+}
+
+// K8.  The windowed DFT search on its own: packed as for K1, iw (B, 2)
+// int32 [first1, wlen] -> spec (B, K) float2, bins first1 .. first1+K-1.
+// With stat non-NULL, K1's second pass follows in the same launch: the
+// masked last-max peak + Quinn -> stat (B, 4) f32 [-, -, freq, peak] and
+// cyc (B,) f32 cycles/sample, so a locked block's search costs the host
+// one call instead of the peak's dozens of small tensor operations.
+extern "C" int windowed_dft_launch(const int32_t* packed, int row_stride,
+                                   const int32_t* iw, int B, int n, int K,
+                                   int flip, float samprate, float binsize,
+                                   float* spec, float* stat, float* cyc,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nhi = n >> 8;
+  size_t smem = (size_t)(nhi + (DFT_THREADS / 32) * DFT_KT) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((K + DFT_KT - 1) / DFT_KT, B);
+  dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, 2, n, K,
+                                             flip, nullptr, (float2*)spec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || stat == nullptr) return (int)err;
+  peak_kernel<<<(B + 127) / 128, 128, 0, s>>>((const float2*)spec, iw, B, K,
+                                              samprate, binsize, stat, cyc);
+  return (int)cudaGetLastError();
+}
+
+// ---- K9: the whole pm block loop in one launch --------------------------
+// Replaces the TPU kernel _scan_kernel (isee3_decoder_tpu/ops/
+// carrier_pallas.py:363, entry pm_scan_locked_fused): for t = 1 .. T-1 the
+// locked block step of K1 -- window from the carried centre and C/N0, the
+// K window bins, masked last-max peak + Quinn, five-moment spin-down,
+// rotation and int16 emission -- with the exclusive int32 prefix sum of
+// the baseband written in place of the baseband.  Block 0 (the cold start,
+// computed before the launch) only enters the prefix sum and the carry.
+//
+// The TPU walks a (B/8, T) grid in order and carries the centre, C/N0 and
+// running sum in VMEM scratch from one grid step to the next.  Here the
+// loop over t runs inside one block per channel (grid B), with the carry in
+// shared memory and registers; the host reads one flag per call instead of
+// one per block.  Per t:
+//   window    thread 0, in float32 as the TPU kernel does it (true
+//             division, so the ok lanes and windows equal the plain
+//             version's); a channel whose window fails gets ok 0 and safe
+//             phases, and the caller discards the whole call for the block
+//             scan.
+//   DFT       dft_columns over the K bins, SCAN_THREADS/256 column groups
+//             taking DFT_KT-bin tiles side by side; bins in shared memory.
+//   peak      warp 0: masked last-max by a shuffle reduction (equal
+//             energies keep the larger bin), then Quinn in lane 0.
+//   moments   every thread, float partials over 16 samples summed in
+//             double, a fixed-order block reduction.
+//   emission  SCAN_ITEMS consecutive samples per thread, a block-wide scan
+//             of the int16 values in uint32 (the int32 wraparound of K3),
+//             the running sum in a register of every thread.
+// What bounds it on the H100: operations -- the DFT is 8 flop per sample
+// and bin (2.2e11 flop at 128 x 31 x 65536 x 107: 3.3 ms at 67 TFLOP/s);
+// the bytes (packed in, int32 out: 2.15 GB, 0.64 ms) stream from HBM
+// once, and the DFT's re-reads of a block (ceil(K/16)/groups passes) hit
+// the L2, which holds every channel's current block.  One block per SM:
+// B = 128 is one wave on 132 SMs, so nothing else hides the block's
+// latency; the 16 warps and 32 independent accumulators per thread of the
+// DFT are what keep the FMA pipes fed.
+#define SCAN_THREADS 512
+#define SCAN_WARPS (SCAN_THREADS / 32)
+#define SCAN_GROUPS (SCAN_THREADS / DFT_THREADS)
+#define SCAN_ITEMS 8
+#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
+
+struct ScanParams {
+  float samprate, binsize, width, thr, top;  // top = fs/2 - binsize, float32
+  int wmax;                                  // K, the window bins evaluated
+};
+
+// Exclusive scan of the per-thread sums `run` over the block (uint32,
+// wrapping).  Returns this thread's offset; `tile` gets the block total.
+// scratch: SCAN_WARPS + 1 words.  Ends with a barrier, so scratch may be
+// reused right away.
+__device__ __forceinline__ uint32_t block_scan(uint32_t run, uint32_t* scratch,
+                                               uint32_t& tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    uint32_t up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t w = lane < SCAN_WARPS ? scratch[lane] : 0u;
+    uint32_t wi = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      uint32_t up = __shfl_up_sync(0xffffffffu, wi, off);
+      if (lane >= off) wi += up;
+    }
+    if (lane < SCAN_WARPS) scratch[lane] = wi - w;  // exclusive warp offsets
+    if (lane == 31) scratch[SCAN_WARPS] = wi;
+  }
+  __syncthreads();
+  const uint32_t off = scratch[warp] + (incl - run);
+  tile = scratch[SCAN_WARPS];
+  __syncthreads();
+  return off;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+    pm_scan_kernel(const int32_t* __restrict__ packed, long long row_stride,
+                   const int16_t* __restrict__ bb0,
+                   const float* __restrict__ init, int T, int n, int flip,
+                   ScanParams P, int tail, int32_t* __restrict__ csum,
+                   float* __restrict__ stat, int32_t* __restrict__ tot) {
+  extern __shared__ float2 smem[];
+  const int nhi = n >> 8;
+  const int K = P.wmax;
+  float2* tw = smem;                         // nhi twiddles W_nhi^j
+  float2* spec = smem + nhi;                 // K window bins
+  float2* red = spec + K;                    // SCAN_WARPS x DFT_KT partials
+  __shared__ double mred[SCAN_WARPS][5];
+  __shared__ uint32_t scratch[SCAN_WARPS + 1];
+  __shared__ float s_center, s_cn0, s_freq, s_cyc, s_amp, s_cn0new, s_ur, s_ui;
+  __shared__ int s_first1, s_wlen, s_ok;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long ldc = (long long)T * n + tail;
+  int32_t* crow = csum + (size_t)b * ldc;
+  float* srow = stat + (size_t)b * T * 6;
+
+  dft_twiddles(tw, nhi);
+  if (tid == 0) {
+    const float* in = init + 4 * b;  // amp, cn0, freq, centre after block 0
+    s_center = in[3];
+    s_cn0 = in[1];
+    srow[0] = in[0];
+    srow[1] = in[1];
+    srow[2] = in[2];
+    srow[3] = 1.0f;  // block 0 is the cold start: ok by definition
+    srow[4] = 0.0f;
+    srow[5] = in[3];
+  }
+  // block 0: the prefix sum of the cold-start baseband
+  uint32_t carry = 0;
+  for (int base = 0; base < n; base += SCAN_TILE) {
+    int v[SCAN_ITEMS];
+    uint32_t run = 0;
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      const int idx = base + tid * SCAN_ITEMS + k;
+      v[k] = idx < n ? (int)bb0[(size_t)b * n + idx] : 0;
+      run += (uint32_t)v[k];
+    }
+    uint32_t tile;
+    uint32_t acc = carry + block_scan(run, scratch, tile);
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      const int idx = base + tid * SCAN_ITEMS + k;
+      if (idx < n) crow[idx] = (int32_t)acc;
+      acc += (uint32_t)v[k];
+    }
+    carry += tile;
+  }
+
+  const Chirp none = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 1; t < T; ++t) {
+    const int32_t* row = packed + (size_t)b * row_stride + (size_t)t * n;
+    // ---- window: the per-channel _fast_search_ok, in float32
+    if (tid == 0) {
+      const float lo = __fsub_rn(s_center, P.width);
+      const float hi = __fadd_rn(s_center, P.width);
+      const int first = (int)truncf(__fdiv_rn(lo, P.binsize));
+      const int last = (int)truncf(__fdiv_rn(hi, P.binsize));
+      const bool ok = s_cn0 > P.thr && lo >= P.binsize && hi < P.top &&
+                      first >= 1 && last > first && last - first <= K - 2;
+      s_first1 = (ok ? first : 1) - 1;
+      s_wlen = ok ? last - first : 1;
+      s_ok = ok;
+    }
+    __syncthreads();
+    const int first1 = s_first1;
+
+    // ---- the K window bins
+    const int g = tid / DFT_THREADS, l = tid % DFT_THREADS;
+    const int ntiles = (K + DFT_KT - 1) / DFT_KT;
+    for (int p = 0; p < ntiles; p += SCAN_GROUPS) {
+      const int tile = p + g;
+      if (tile < ntiles) {  // uniform over each 256-thread group
+        float2 v[DFT_KT];
+        dft_columns(row, n, flip, nullptr, tw, first1 + tile * DFT_KT, l, v);
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 0; k < DFT_KT; ++k) red[warp * DFT_KT + k] = v[k];
+        }
+      }
+      __syncthreads();
+      if (tid < SCAN_GROUPS * DFT_KT) {
+        const int gg = tid / DFT_KT, k = tid % DFT_KT;
+        const int kk = (p + gg) * DFT_KT + k;
+        if (kk < K) {
+          float sr = 0.0f, si = 0.0f;
+          for (int w = 0; w < DFT_THREADS / 32; ++w) {
+            const float2 r = red[(gg * (DFT_THREADS / 32) + w) * DFT_KT + k];
+            sr += r.x;
+            si += r.y;
+          }
+          spec[kk] = make_float2(sr, si);
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- masked last-max peak + Quinn (warp 0)
+    if (warp == 0) {
+      const int wlen = s_wlen;
+      float best = -INFINITY;
+      int pk = 0;
+      for (int k = lane; k < K; k += 32) {
+        const float e = spec[k].x * spec[k].x + spec[k].y * spec[k].y;
+        const float m = (k >= 1 && k < wlen + 1) ? e : -1.0f;
+        if (m >= best) {
+          best = m;
+          pk = k;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int opk = __shfl_xor_sync(0xffffffffu, pk, off);
+        if (ob > best || (ob == best && opk > pk)) {  // the LAST maximal bin
+          best = ob;
+          pk = opk;
+        }
+      }
+      if (lane == 0) {
+        const float freq = quinn_freq(spec[pk], spec[min(pk + 1, K - 1)],
+                                      spec[max(pk - 1, 0)], first1 + pk,
+                                      P.samprate, P.binsize);
+        s_freq = freq;
+        s_cyc = __fdiv_rn(freq, P.samprate);
+      }
+    }
+    __syncthreads();
+    const float c = s_cyc;
+    const float c256 = mod1(c * 256.0f);
+
+    // ---- spin-down moments
+    double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+    for (int base = 0; base < n; base += SCAN_THREADS * 16) {
+      float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int j = 0; j < 16; ++j) {
+        const int idx = base + j * SCAN_THREADS + tid;
+        if (idx < n) {
+          float sr, si;
+          spun_sample(row[idx], idx, c, c256, false, none, flip, sr, si);
+          a[0] += sr;
+          a[1] += si;
+          a[2] += sr * sr;
+          a[3] += si * si;
+          a[4] += sr * si;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 5; ++m) acc[m] += (double)a[m];
+    }
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      double v = acc[m];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) mred[warp][m] = v;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      double s[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int w = 0; w < SCAN_WARPS; ++w)
+        for (int m = 0; m < 5; ++m) s[m] += mred[w][m];
+      finish_moments(s, n, P.samprate, s_amp, s_cn0new, s_ur, s_ui);
+    }
+    __syncthreads();
+    const float ur = s_ur, ui = s_ui;
+
+    // ---- rotate, emit, prefix sum
+    int32_t* dst = crow + (size_t)t * n;
+    for (int base = 0; base < n; base += SCAN_TILE) {
+      int v[SCAN_ITEMS];
+      uint32_t run = 0;
+#pragma unroll
+      for (int k = 0; k < SCAN_ITEMS; ++k) {
+        const int idx = base + tid * SCAN_ITEMS + k;
+        v[k] = 0;
+        if (idx < n) {
+          float sr, si;
+          spun_sample(row[idx], idx, c, c256, false, none, flip, sr, si);
+          v[k] = emit_sample(sr, si, ur, ui);
+        }
+        run += (uint32_t)v[k];
+      }
+      uint32_t tile;
+      uint32_t acc2 = carry + block_scan(run, scratch, tile);
+#pragma unroll
+      for (int k = 0; k < SCAN_ITEMS; ++k) {
+        const int idx = base + tid * SCAN_ITEMS + k;
+        if (idx < n) dst[idx] = (int32_t)acc2;
+        acc2 += (uint32_t)v[k];
+      }
+      carry += tile;
+    }
+
+    // ---- stats and the carry into block t+1
+    if (tid == 0) {
+      const float cn0 = s_cn0new;
+      const float centre = cn0 > P.thr ? s_freq : s_center;
+      float* st = srow + (size_t)t * 6;
+      st[0] = s_amp;
+      st[1] = cn0;
+      st[2] = s_freq;
+      st[3] = s_ok ? 1.0f : 0.0f;
+      st[4] = centre;
+      st[5] = centre;
+      s_center = centre;
+      s_cn0 = cn0;
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < tail; j += SCAN_THREADS)
+    crow[(size_t)T * n + j] = (int32_t)carry;
+  if (tid == 0) tot[b] = (int32_t)carry;
+}
+
+// K9.  packed (B, T, n) int32 words, channel stride row_stride, block
+// stride n; bb0 (B, n) int16 block-0 baseband; init (B, 4) f32 [amp, cn0,
+// freq, centre after block 0]; outputs csum (B, T*n + tail) int32 (columns
+// past T*n hold the total), stat (B, T, 6) f32 [amp, cn0, freq, ok, centre,
+// centre] (block 0: [init..., 1, 0, centre]), tot (B,) int32.
+extern "C" int pm_scan_launch(const int32_t* packed, long long row_stride,
+                              const int16_t* bb0, const float* init, int B,
+                              int T, int n, int K, float samprate,
+                              float binsize, float width, float thr, float top,
+                              int flip, int tail, int32_t* csum, float* stat,
+                              int32_t* tot, void* stream) {
+  const int nhi = n >> 8;
+  size_t smem = (size_t)(nhi + K + SCAN_WARPS * DFT_KT) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      pm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ScanParams P = {samprate, binsize, width, thr, top, K};
+  pm_scan_kernel<<<B, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
+      packed, row_stride, bb0, init, T, n, flip, P, tail, csum, stat, tot);
+  return (int)cudaGetLastError();
 }

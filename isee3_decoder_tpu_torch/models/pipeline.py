@@ -15,6 +15,12 @@ batch of tensors on one device.  ``receive_block`` is the main path:
      of cycles, then the fused Viterbi (kernels K5/K6) on every lane
      still undecoded (models/decode.viterbi_fallback_inplace).
 
+With ``PipelineConfig(pm_backend="fused_scan")``, steps 1-2 are one
+launch of kernel K9 after the cold-start block (ops/carrier.
+pm_demod_scan_csum): it carries the lock state from block to block and
+writes the prefix sum, and the host reads one flag per call instead of
+one scalar per pm block.
+
 ``receive_block_wideband`` puts the polyphase channelizer in front: one
 wide capture → ops/channelizer_cuda.channelize_raw_fused (kernel K7a) →
 per-channel raw int16 → the same chain.  ``receive_blocks_pipelined``
@@ -46,11 +52,12 @@ from isee3_decoder_tpu_torch.models.symdemod import (
     window_samples,
 )
 from isee3_decoder_tpu_torch.ops.carrier import (
-    PMBlockOut,
     PMConfig,
+    _scan_fused_capable,
     init_carry,
     iq_from_interleaved,
     pm_demod_scan,
+    pm_demod_scan_csum,
 )
 from isee3_decoder_tpu_torch.ops.channelizer import channelize
 from isee3_decoder_tpu_torch.ops.channelizer_cuda import (
@@ -68,6 +75,12 @@ class PipelineConfig:
     pm: PMConfig = PMConfig()
     sym: SymConfig = SymConfig()
     decode: DecodeConfig = DecodeConfig()
+    #: pm time-loop form: "auto" runs the block scan (K1 per locked block)
+    #: and then the prefix sum (K3); "fused_scan" runs blocks 1..T-1 in one
+    #: launch of K9, which emits the prefix sum itself, where
+    #: carrier._scan_fused_capable allows (raw input, T >= 2, no Doppler
+    #: rate, blocks a multiple of 8192 samples), else as "auto"
+    pm_backend: str = "auto"
 
 
 class PipelineResult(NamedTuple):
@@ -78,14 +91,18 @@ class PipelineResult(NamedTuple):
     cn0: np.ndarray  # (T, B)
 
 
-def _demod(iq: torch.Tensor, cfg: PipelineConfig
-           ) -> tuple[torch.Tensor, PMBlockOut]:
+def _demod(iq: torch.Tensor, cfg: PipelineConfig):
     """(B, L) complex IQ — or (B, 2L) int16 interleaved I,Q, the
     reference's recording format (pmdemod.c:206-230) — → ((B, S) uint8
-    soft symbols, pm scan outputs).  Trailing partial blocks are dropped
-    as the reference's fread loops do (pmdemod.c:210-215,
-    symdemod.c:124-125); one window of slack is left for the ± timing
-    search."""
+    soft symbols, (B, T·n + 1) int32 prefix sum of the baseband whose last
+    column holds the total, carrier_freq (T, B), cn0 (T, B), and the
+    (T, B, n) int16 baseband — None on the fused scan, which never
+    writes it).  Trailing partial blocks are dropped as the reference's
+    fread loops do (pmdemod.c:210-215, symdemod.c:124-125); one window of
+    slack is left for the ± timing search."""
+    if cfg.pm_backend not in ("auto", "fused_scan"):
+        raise ValueError("pm_backend must be 'auto' or 'fused_scan', got "
+                         f"{cfg.pm_backend!r}")
     if iq.ndim == 1:
         iq = iq[None, :]
     B = iq.shape[0]
@@ -95,26 +112,38 @@ def _demod(iq: torch.Tensor, cfg: PipelineConfig
     blocks = iq[:, : nblocks * vals].reshape(B, nblocks, vals)
     first0 = initial_firstsample(cfg.sym)
     nwindows = max((nblocks * n - first0) // window_samples(cfg.sym) - 1, 0)
+    carry = init_carry(B, cfg.pm, device=iq.device)
 
-    _, pm_out = pm_demod_scan(init_carry(B, cfg.pm, device=iq.device), blocks,
-                              cfg.pm)
-    # one edge-extension column: the timing search of the last window may
-    # read past the final sample
-    csum = prefix_sum_blocks(pm_out.baseband, tail=1)
+    # the csum's edge-extension column stands in for the window slack the
+    # JAX package's fused scan requires (_fused_csum_ok)
+    if (cfg.pm_backend == "fused_scan" and not iq.is_complex()
+            and nwindows >= 1 and _scan_fused_capable(cfg.pm, n, nblocks)):
+        _, csum, stats, _ = pm_demod_scan_csum(carry, blocks, cfg.pm, tail=1)
+        baseband, freq, cn0 = None, stats.carrier_freq, stats.cn0
+    else:
+        _, pm_out = pm_demod_scan(carry, blocks, cfg.pm)
+        # one edge-extension column: the timing search of the last window
+        # may read past the final sample
+        csum = prefix_sum_blocks(pm_out.baseband, tail=1)
+        baseband, freq, cn0 = pm_out.baseband, pm_out.carrier_freq, pm_out.cn0
     _, sym_out = symdemod_scan_csum(csum, cfg.sym, nwindows)
     soft = sym_out.soft.transpose(0, 1).reshape(B, -1)
-    return soft, pm_out
+    return soft, csum, freq, cn0, baseband
 
 
 def demod_to_symbols(
     iq: torch.Tensor, cfg: PipelineConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """IQ → ((B, S) soft symbols, (B, L) int16 baseband, carrier_freq
-    (T, B), cn0 (T, B))."""
-    soft, pm_out = _demod(iq, cfg)
-    T, B, n = pm_out.baseband.shape
-    baseband = pm_out.baseband.transpose(0, 1).reshape(B, T * n)
-    return soft, baseband, pm_out.carrier_freq, pm_out.cn0
+    (T, B), cn0 (T, B)).  On the fused scan the baseband is rebuilt from
+    the prefix sum's differences."""
+    soft, csum, freq, cn0, bb = _demod(iq, cfg)
+    if bb is None:
+        baseband = (csum[:, 1:] - csum[:, :-1]).to(torch.int16)
+    else:
+        T, B, n = bb.shape
+        baseband = bb.transpose(0, 1).reshape(B, T * n)
+    return soft, baseband, freq, cn0
 
 
 def receive_block_device_soft(
@@ -126,7 +155,7 @@ def receive_block_device_soft(
     """The device part of the chain: IQ → (packed decode buffer, soft
     symbols), both on the IQ's device.  The soft symbols stay there so
     the host tail gathers only the failed lanes' frame windows."""
-    soft, _ = _demod(iq, cfg)
+    soft = _demod(iq, cfg)[0]
     return decode_block_device(soft, nframes, npos, cfg.decode), soft
 
 

@@ -10,8 +10,15 @@ On raw int16 blocks — the recording format, and the receive chain's
 main path — a locked block runs entirely in kernel K1
 (``carrier_cuda.pm_locked_fused``) and an unlocked one runs the full
 ``torch.fft`` search followed by kernel K2 (``carrier_cuda.
-spin_down_fused``).  The JAX package's ``lax.cond`` between the two is a
-host branch on one scalar per block here.
+spin_down_fused``).  A locked block shorter than the TPU kernels' 8192-
+sample chunk searches with kernel K8 (``windowed_dft_raw``) and spins
+down with K2, as the JAX package does.  The JAX package's ``lax.cond``
+between these is a host branch on one scalar per block here.
+
+``pm_demod_scan_csum`` runs blocks 1..T-1 in one launch of kernel K9
+(``carrier_cuda.pm_scan_locked_fused``) and emits the prefix sum the
+symbol demodulator reads; one host read per call decides whether its
+result stands or the block scan runs instead.
 """
 
 from __future__ import annotations
@@ -276,6 +283,22 @@ def find_carrier_windowed(
                          cfg.samprate)
 
 
+def find_carrier_windowed_raw(
+    packed: torch.Tensor, carry: PMCarry, cfg: PMConfig, flip: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """find_carrier_windowed over (B, n) packed int32 words: the window
+    bins from kernel K8, whose launch also runs the peak + Quinn pass
+    (``windowed_peak``, the JAX package's ``_windowed_peak_from_s``).
+    Callers guard with _fast_search_ok."""
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+
+    first, last = _search_window(carry.search_center, carry.cn0, cfg)
+    _, freq, peak = carrier_cuda.windowed_search_raw(
+        packed, first - 1, last - first, _window_bins(cfg), cfg.samprate,
+        cfg.actual_binsize, flip)
+    return freq, peak
+
+
 def carrier_cycles(carrier_freq: torch.Tensor, samprate: float) -> torch.Tensor:
     """(B,) Hz → (B,) float32 cycles/sample by a true IEEE division (a
     Python-scalar divisor would let PyTorch multiply by its reciprocal
@@ -413,19 +436,28 @@ def pm_demod_block_raw(
 ) -> tuple[PMCarry, PMBlockOut]:
     """pm_demod_block over a (B, 2·fftsize) raw int16 block.  Locked
     (every channel): kernel K1 does the windowed DFT search, peak +
-    Quinn, spin-down and int16 emission from the packed words.
-    Otherwise: full FFT search on the converted block, then kernel K2
-    spins down and emits.  A configured Doppler rate folds its de-chirp
-    into both kernels' mix angle.  ``out`` (B, fftsize) int16 receives
-    the baseband in place when given."""
+    Quinn, spin-down and int16 emission from the packed words — or, for
+    an undechirped block of fewer than carrier_cuda.SCAN_CHUNK samples,
+    kernel K8 the search and K2 the rest (the JAX package's split when
+    its fused kernels' chunk does not divide the block).  Otherwise: full
+    FFT search on the converted block, then kernel K2 spins down and
+    emits.  A configured Doppler rate folds its de-chirp into K1's and
+    K2's mix angle.  ``out`` (B, fftsize) int16 receives the baseband in
+    place when given."""
     from isee3_decoder_tpu_torch.ops import carrier_cuda
 
     _check_dtype(cfg)
     packed = pack_raw(raw)
+    n = packed.shape[1]
     # de-chirp rate in cycles/sample², folded into the kernels' mix angle
     dop = cfg.doppler_rate / (cfg.samprate * cfg.samprate)
-    if (cfg.fast_locked_search and _fast_search_capable(cfg)
-            and _fast_search_ok(carry, cfg)):
+    locked = (cfg.fast_locked_search and _fast_search_capable(cfg)
+              and _fast_search_ok(carry, cfg))
+    if locked and not dop and n % carrier_cuda.SCAN_CHUNK:
+        freq, _ = find_carrier_windowed_raw(packed, carry, cfg, flip)
+        baseband, amp, cn0 = carrier_cuda.spin_down_fused(
+            packed, freq, cfg.samprate, flip, out=out)
+    elif locked:
         first, last = _search_window(carry.search_center, carry.cn0, cfg)
         baseband, freq, amp, cn0 = carrier_cuda.pm_locked_fused(
             packed, first - 1, last - first, _window_bins(cfg),
@@ -472,3 +504,75 @@ def pm_demod_scan(
         cn0=torch.stack(cn0s),
         locked=torch.stack(locks),
     )
+
+
+class PMScanStats(NamedTuple):
+    """Per-block pm status in scan layout (the baseband lives in the
+    prefix sum)."""
+
+    carrier_freq: torch.Tensor  # (T, B) Hz
+    cn0: torch.Tensor  # (T, B) dB-Hz
+    locked: torch.Tensor  # (T, B) bool
+
+
+def _scan_fused_capable(cfg: PMConfig, n: int, T: int) -> bool:
+    """Static gate for the one-launch pm scan (kernel K9): at least one
+    block after the cold start, no de-chirp (the kernel has none), the
+    windowed locked search, and blocks the TPU kernel's chunk divides."""
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+
+    return (
+        T >= 2
+        and cfg.doppler_rate == 0.0
+        and cfg.fast_locked_search
+        and _fast_search_capable(cfg)
+        and n % carrier_cuda.SCAN_CHUNK == 0
+    )
+
+
+def pm_demod_scan_csum(
+    carry: PMCarry,
+    raw_blocks: torch.Tensor,
+    cfg: PMConfig = PMConfig(),
+    flip: bool = False,
+    tail: int = 0,
+) -> tuple[PMCarry, torch.Tensor, PMScanStats, torch.Tensor]:
+    """pm_demod_scan with the prefix sum of the baseband as its output:
+    (B, T, 2·fftsize) raw int16 → (carry', csum (B, T·n + tail) int32
+    exclusive prefix sum — columns past T·n hold the total —, PMScanStats,
+    totals (B,) int32).
+
+    Block 0 runs the cold-start step (pm_demod_block_raw); blocks 1..T-1
+    run the locked windowed path in one launch of kernel K9, which carries
+    the lock state and the running sum.  If any channel's window fails
+    the locked-path preconditions in any of those blocks, the whole call
+    runs again from ``carry`` as the block scan + kernel K3 — the JAX
+    package's ``lax.cond``, here one host read per call.  Callers pass
+    _scan_fused_capable."""
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
+
+    B, T = raw_blocks.shape[0], raw_blocks.shape[1]
+    n = raw_blocks.shape[2] // 2
+    carry1, out0 = pm_demod_block_raw(carry, raw_blocks[:, 0], cfg, flip)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    csum, stat, tots = carrier_cuda.pm_scan_locked_fused(
+        pack_raw(raw_blocks), out0.baseband, init,
+        cfg.samprate, cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold,
+        _window_bins(cfg), flip,
+        dop=cfg.doppler_rate / (cfg.samprate * cfg.samprate), tail=tail,
+    )
+    if bool((stat[:, 1:, 3] > 0).all()):
+        freq, cn0 = stat[:, :, 2].T, stat[:, :, 1].T
+        carry = PMCarry(search_center=stat[:, T - 1, 5], cn0=stat[:, T - 1, 1])
+    else:
+        _kernels.note_backend("pm_scan", "fallback")
+        carry, out = pm_demod_scan(carry, raw_blocks, cfg, flip)
+        csum = prefix_sum_blocks(out.baseband, tail=tail)
+        tots = csum[:, T * n - 1] + out.baseband[T - 1, :, n - 1].to(torch.int32)
+        freq, cn0 = out.carrier_freq, out.cn0
+    stats = PMScanStats(carrier_freq=freq, cn0=cn0,
+                        locked=cn0 > cfg.cn0_threshold)
+    return carry, csum, stats, tots

@@ -1,13 +1,18 @@
-"""Kernels K1 (locked pm block) and K2 (spin-down) and their plain
-PyTorch versions.
+"""Kernels K1 (locked pm block), K2 (spin-down), K8 (windowed DFT
+search) and K9 (the pm scan in one launch) and their plain PyTorch
+versions.
 
 K1 ``pm_locked_fused`` replaces the TPU kernel ``_locked_kernel``
 (isee3_decoder_tpu/ops/carrier_pallas.py:687); K2 ``spin_down_fused``
-replaces ``_spin_kernel`` (carrier_pallas.py:214).  The CUDA source is
-csrc/carrier.cu.  A CUDA tensor goes through the kernel (or the wrapper
-raises); a CPU tensor through the plain version beside it, which is the
-JAX package's XLA path written in PyTorch (windowed DFT by einsum,
-masked last-max peak, Quinn, five-moment spin-down, int16 emission).
+replaces ``_spin_kernel`` (carrier_pallas.py:214); K8
+``windowed_dft_raw`` replaces ``_kernel`` (carrier_pallas.py:63), and
+``windowed_search_raw`` runs it with K1's peak pass in one launch; K9
+``pm_scan_locked_fused`` replaces ``_scan_kernel`` (carrier_pallas.py:363).
+The CUDA source is csrc/carrier.cu.  A CUDA tensor goes through the
+kernel (or the wrapper raises); a CPU tensor through the plain version
+beside it, which is the JAX package's XLA path written in PyTorch
+(windowed DFT by einsum, masked last-max peak, Quinn, five-moment
+spin-down, int16 emission).
 """
 
 from __future__ import annotations
@@ -19,9 +24,13 @@ import torch
 
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops import carrier
+from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks_plain
 
 SPIN_CHUNK = 4096  # samples per moments/emit block (csrc/carrier.cu)
 CHIRP_CHUNK = 8192  # de-chirp coefficient chunk (csrc/carrier.cu)
+SCAN_CHUNK = 8192  # the TPU kernels' chunk: K9's gate, K1's over K8 + K2
+SCAN_WARPS = 16  # warps of a K9 block (csrc/carrier.cu)
+DFT_KT = 16  # bins per DFT tile (csrc/carrier.cu)
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 
 
@@ -216,3 +225,225 @@ def spin_down_fused(
     _kernels.count_launch("spin_down")
     _kernels.note_backend("pm", "cuda")
     return bb, stat[:, 0], stat[:, 1]
+
+
+def windowed_dft_raw_plain(packed: torch.Tensor, first1: torch.Tensor, K: int,
+                           flip: bool = False) -> torch.Tensor:
+    """Plain version of K8: (B, n) packed int32 IQ + (B,) window start bins
+    → (B, K) complex64 DFT bins first1 .. first1+K-1."""
+    return carrier.windowed_dft(_iq_from_packed(packed, flip), first1, K)
+
+
+def windowed_search_raw_plain(
+    packed: torch.Tensor, first1: torch.Tensor, wlen: torch.Tensor, K: int,
+    samprate: float, binsize: float, flip: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K8 with its peak pass: → (bins (B, K) complex64,
+    carrier_freq float32, peak bin int64)."""
+    S = windowed_dft_raw_plain(packed, first1, K, flip)
+    freq, peak = carrier.windowed_peak(S, first1, wlen, binsize, samprate)
+    return S, freq, peak
+
+
+def _windowed_dft_launch(packed, first1, wlen, K, flip, samprate=0.0,
+                         binsize=0.0):
+    """Launch K8 (and, with ``wlen``, the peak pass) on a CUDA tensor →
+    (spec (B, K, 2) float32, stat (B, 4) float32 or None)."""
+    _check_packed(packed, None)
+    B, n = packed.shape
+    peak = wlen is not None
+    lo = 3 if peak else 1  # the peak reads the bins around it
+    if not lo <= K <= n:
+        raise ValueError(f"K = {K} window bins out of range {lo}..{n}")
+    if ((n // 256) + 128) * 8 > _SMEM_MAX:
+        raise ValueError(f"n = {n}: twiddle table exceeds shared memory")
+    dev = packed.device
+    wlen = wlen if peak else first1
+    if first1.shape != (B,) or wlen.shape != (B,):
+        raise ValueError("first1 and wlen must be (B,)")
+    iw = torch.stack([first1, wlen], dim=1).to(device=dev,
+                                               dtype=torch.int32).contiguous()
+    spec = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
+    stat = cyc = None
+    if peak:
+        stat = torch.empty((B, 4), dtype=torch.float32, device=dev)
+        cyc = torch.empty((B,), dtype=torch.float32, device=dev)
+    err = _kernels.lib().windowed_dft_launch(
+        packed.data_ptr(), packed.stride(0), iw.data_ptr(), B, n, K, int(flip),
+        float(np.float32(samprate)), float(np.float32(binsize)),
+        spec.data_ptr(), None if stat is None else stat.data_ptr(),
+        None if cyc is None else cyc.data_ptr(), _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "windowed_dft_launch")
+    _kernels.count_launch("windowed_dft")
+    _kernels.note_backend("search", "cuda")
+    return spec, stat
+
+
+def windowed_dft_raw(packed: torch.Tensor, first1: torch.Tensor, K: int,
+                     flip: bool = False) -> torch.Tensor:
+    """K8: the windowed DFT search alone → (B, K) complex64 bins
+    first1_b .. first1_b+K-1 of each row's n-point DFT (the bins K1
+    computes in its first pass)."""
+    if not _kernels.use_kernel(packed):
+        _kernels.note_backend("search", "torch")
+        return windowed_dft_raw_plain(packed, first1, K, flip)
+    return torch.view_as_complex(_windowed_dft_launch(packed, first1, None, K,
+                                                      flip)[0])
+
+
+def windowed_search_raw(
+    packed: torch.Tensor, first1: torch.Tensor, wlen: torch.Tensor, K: int,
+    samprate: float, binsize: float, flip: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8 followed in the same launch by K1's peak pass (masked last-max
+    peak + Quinn, carrier.windowed_peak) → (bins (B, K) complex64,
+    carrier_freq float32, peak bin int64).  Callers pass the
+    carrier._fast_search_ok gate, so 1 <= wlen <= K-2."""
+    if not _kernels.use_kernel(packed):
+        _kernels.note_backend("search", "torch")
+        return windowed_search_raw_plain(packed, first1, wlen, K, samprate,
+                                         binsize, flip)
+    spec, stat = _windowed_dft_launch(packed, first1, wlen, K, flip, samprate,
+                                      binsize)
+    return (torch.view_as_complex(spec), stat[:, 2],
+            stat[:, 3].to(torch.int64))
+
+
+def _scan_constants(samprate, binsize, search_width, cn0_threshold):
+    """The scan kernel's float32 constants, rounded as the TPU kernel
+    rounds them: fs, bin size, half width, threshold, fs/2 - bin size."""
+    f32 = np.float32
+    top = f32(f32(samprate) / f32(2.0)) - f32(binsize)
+    return tuple(float(v) for v in (f32(samprate), f32(binsize),
+                                     f32(search_width), f32(cn0_threshold),
+                                     top))
+
+
+def scan_window(center: torch.Tensor, cn0: torch.Tensor, samprate: float,
+                binsize: float, search_width: float, cn0_threshold: float,
+                wmax: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9's per-block window (carrier_pallas.py:407-427): the per-channel
+    copy of carrier._fast_search_ok in float32 with true divisions →
+    (first1 int32, wlen int32, ok bool); a failing channel gets the safe
+    window first1 0, wlen 1."""
+    fs, bsz, w, thr, top = _scan_constants(samprate, binsize, search_width,
+                                           cn0_threshold)
+    bsz_t = torch.tensor(bsz, dtype=torch.float32, device=center.device)
+    lo, hi = center - w, center + w
+    first = torch.trunc(lo / bsz_t).to(torch.int32)
+    last = torch.trunc(hi / bsz_t).to(torch.int32)
+    ok = ((cn0 > thr) & (lo >= bsz) & (hi < top) & (first >= 1)
+          & (last > first) & (last - first <= wmax - 2))
+    first1 = torch.where(ok, first, 1) - 1
+    wlen = torch.where(ok, last - first, 1)
+    return first1.to(torch.int32), wlen.to(torch.int32), ok
+
+
+def pm_scan_locked_plain(
+    packed_blocks: torch.Tensor,
+    bb0: torch.Tensor,
+    init: torch.Tensor,
+    samprate: float,
+    binsize: float,
+    search_width: float,
+    cn0_threshold: float,
+    wmax: int,
+    flip: bool = False,
+    tail: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K9: per block t = 1..T-1 the window formula, the
+    plain K1 and the carry update; then the prefix sum of all T blocks."""
+    B, T, n = packed_blocks.shape
+    center, cn0 = init[:, 3].clone(), init[:, 1].clone()
+    bbs = [bb0]
+    rows = [torch.stack([init[:, 0], init[:, 1], init[:, 2],
+                         torch.ones_like(center), torch.zeros_like(center),
+                         init[:, 3]], dim=1)]
+    for t in range(1, T):
+        first1, wlen, ok = scan_window(center, cn0, samprate, binsize,
+                                       search_width, cn0_threshold, wmax)
+        bb, freq, amp, cn0 = pm_locked_plain(packed_blocks[:, t], first1, wlen,
+                                             wmax, samprate, binsize, flip)
+        center = torch.where(cn0 > np.float32(cn0_threshold), freq, center)
+        bbs.append(bb)
+        rows.append(torch.stack([amp, cn0, freq, ok.to(torch.float32), center,
+                                 center], dim=1))
+    csum = prefix_sum_blocks_plain(torch.stack(bbs), tail + 1)
+    tot = csum[:, T * n]
+    return csum[:, : T * n + tail], torch.stack(rows, dim=1), tot
+
+
+def pm_scan_locked_fused(
+    packed_blocks: torch.Tensor,
+    bb0: torch.Tensor,
+    init: torch.Tensor,
+    samprate: float,
+    binsize: float,
+    search_width: float,
+    cn0_threshold: float,
+    wmax: int,
+    flip: bool = False,
+    dop: float = 0.0,
+    tail: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9: pm blocks 1..T-1 in one launch, emitting the prefix sum.
+
+    packed_blocks (B, T, n) int32 words, bb0 (B, n) int16 block-0 baseband
+    from the cold-start step, init (B, 4) float32 [amp, cn0, freq, centre
+    after block 0] → (csum (B, T·n + tail) int32 exclusive prefix sum of
+    the baseband, columns past T·n holding the total; stat (B, T, 6)
+    float32 [amp, cn0, freq, ok, centre, centre]; totals (B,) int32).
+    ``wmax`` is the window bin count (carrier._window_bins).  A block whose
+    window fails the locked-path preconditions has ok 0: the caller then
+    discards the result (carrier.pm_demod_scan_csum).  The kernel has no
+    de-chirp: a non-zero ``dop`` is refused."""
+    if dop:
+        raise ValueError("pm_scan_locked_fused has no Doppler de-chirp")
+    if packed_blocks.ndim != 3 or packed_blocks.shape[1] < 2:
+        raise ValueError("packed_blocks must be (B, T, n) with T >= 2, got "
+                         f"{tuple(packed_blocks.shape)}")
+    if not _kernels.use_kernel(packed_blocks):
+        _kernels.note_backend("pm_scan", "torch")
+        return pm_scan_locked_plain(packed_blocks, bb0, init, samprate,
+                                    binsize, search_width, cn0_threshold, wmax,
+                                    flip, tail)
+    B, T, n = packed_blocks.shape
+    dev = packed_blocks.device
+    if packed_blocks.dtype != torch.int32:
+        raise ValueError(f"packed_blocks must be int32, got {packed_blocks.dtype}")
+    if packed_blocks.stride(2) != 1 or packed_blocks.stride(1) != n:
+        raise ValueError("packed_blocks: each channel's T blocks must be "
+                         "contiguous")
+    if n % 256 != 0:
+        raise ValueError(f"n = {n} must be a positive multiple of 256")
+    if bb0.dtype != torch.int16 or tuple(bb0.shape) != (B, n) \
+            or not bb0.is_contiguous() or bb0.device != dev:
+        raise ValueError("bb0 must be a contiguous (B, n) int16 tensor on the "
+                         "input's device")
+    if init.dtype != torch.float32 or tuple(init.shape) != (B, 4) \
+            or not init.is_contiguous() or init.device != dev:
+        raise ValueError("init must be a contiguous (B, 4) float32 tensor on "
+                         "the input's device")
+    if not 3 <= wmax <= n or B < 1 or tail < 0 or T * n + tail >= 2**31:
+        raise ValueError(f"unsupported K9 shape B={B} T={T} n={n} K={wmax} "
+                         f"tail={tail}")
+    # twiddles, window bins and DFT partials, beside ~1 KB of static
+    # shared memory
+    if (n // 256 + wmax + SCAN_WARPS * DFT_KT) * 8 > _SMEM_MAX - 1024:
+        raise ValueError(f"n = {n}, K = {wmax}: tables exceed shared memory")
+    fs, bsz, w, thr, top = _scan_constants(samprate, binsize, search_width,
+                                           cn0_threshold)
+    csum = torch.empty((B, T * n + tail), dtype=torch.int32, device=dev)
+    stat = torch.empty((B, T, 6), dtype=torch.float32, device=dev)
+    tot = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = _kernels.lib().pm_scan_launch(
+        packed_blocks.data_ptr(), packed_blocks.stride(0), bb0.data_ptr(),
+        init.data_ptr(), B, T, n, wmax, fs, bsz, w, thr, top, int(flip), tail,
+        csum.data_ptr(), stat.data_ptr(), tot.data_ptr(),
+        _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "pm_scan_launch")
+    _kernels.count_launch("pm_scan")
+    _kernels.note_backend("pm_scan", "cuda")
+    return csum, stat, tot

@@ -6,7 +6,8 @@ port's counterparts from the JAX package's objects (duck-typed: nothing
 here imports JAX), so a test can start both packages from identical
 state.  Fields that only select a JAX/TPU execution backend
 (``search_backend``, ``csum_backend``, ``viterbi_backend``, ...) have no
-counterpart and are dropped.  The port keeps its own copy of the code
+counterpart and are dropped; ``pm_backend``, which selects the
+computation (block scan or fused scan), carries across.  The port keeps its own copy of the code
 tables (``isee3_decoder_tpu_torch.config``), so a JAX ``CodeSpec``
 becomes the port's equal one through ``code_spec``.
 """
@@ -61,7 +62,7 @@ def decode_config(src) -> DecodeConfig:
 def pipeline_config(src) -> PipelineConfig:
     return PipelineConfig(
         pm=pm_config(src.pm), sym=sym_config(src.sym),
-        decode=decode_config(src.decode),
+        decode=decode_config(src.decode), pm_backend=src.pm_backend,
     )
 
 

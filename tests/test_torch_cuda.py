@@ -40,14 +40,14 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _raw(dev, B: int, cfg: carrier.PMConfig, seed: int):
+def _raw(dev, B: int, cfg: carrier.PMConfig, seed: int, nblocks: int = 1):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     frames = torch.as_tensor(random_frames(np.random.default_rng(seed), B),
                              device=dev)[:, None, :]
     freqs = torch.as_tensor(2000.0 + 137.0 * np.arange(B), dtype=torch.float32,
                             device=dev)
-    iq = synthesize_iq_device(frames, freqs, gen, cfg.fftsize,
+    iq = synthesize_iq_device(frames, freqs, gen, nblocks * cfg.fftsize,
                               samprate=cfg.samprate, symrate=512.0,
                               noise_std=300.0)
     return to_raw_int16(iq), freqs
@@ -277,3 +277,148 @@ def test_k7_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="taps must have"):
         channelizer_cuda.channelize_raw_fused(words, 128, 8,
                                               np.zeros(100, np.float32))
+
+
+@pytest.mark.parametrize("B,binsize,flip", [(5, 8.0, False), (8, 4.0, True)])
+def test_k8_matches_plain(dev, B, binsize, flip):
+    """K8's bins against the plain einsum form: relative to the largest
+    bin within 1e-5 (float32 sums in another order), equal peak bins;
+    K8 with its peak pass (one launch) gives the same bins and the plain
+    peak's bin and frequency (within 5e-3 Hz)."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=binsize, search_width=100.0)
+    raw, freqs = _raw(dev, B, cfg, seed=B)
+    packed = carrier.pack_raw(raw)
+    # swapping I and Q mirrors the carriers to -f: search there
+    center = -freqs if flip else freqs
+    carry = carrier.PMCarry(search_center=center,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    K = carrier._window_bins(cfg)
+    n0 = _kernels.LAUNCHES["windowed_dft"]
+    got = carrier_cuda.windowed_dft_raw(packed, first - 1, K, flip)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["windowed_dft"] == n0 + 1
+    assert _kernels.backend_used["search"] == "cuda"
+    want = carrier_cuda.windowed_dft_raw_plain(packed, first - 1, K, flip)
+    assert got.shape == (B, K) and got.dtype == torch.complex64
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    args = (first - 1, last - first, cfg.actual_binsize, cfg.samprate)
+    f_k, pk_k = carrier.windowed_peak(got, *args)
+    f_p, pk_p = carrier.windowed_peak(want, *args)
+    assert torch.equal(pk_k, pk_p)
+    torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
+    s_k, f_s, pk_s = carrier_cuda.windowed_search_raw(
+        packed, first - 1, last - first, K, cfg.samprate, cfg.actual_binsize,
+        flip)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["windowed_dft"] == n0 + 2
+    assert torch.equal(s_k, got)
+    assert torch.equal(pk_s, pk_p)
+    torch.testing.assert_close(f_s, f_p, atol=5e-3, rtol=0)
+
+
+def _scan_inputs(dev, B: int, T: int, cfg, seed: int, lost: int | None = None):
+    raw, _ = _raw(dev, B, cfg, seed, nblocks=T)
+    if lost is not None:  # channel `lost` carries nothing after block 0
+        n = cfg.fftsize
+        raw[lost, 2 * n:] = torch.randint(-300, 300, (2 * (T - 1) * n,),
+                                          device=dev, dtype=torch.int16)
+    return raw.reshape(B, T, 2 * cfg.fftsize)
+
+
+@pytest.mark.parametrize("B,T,flip", [(6, 3, False), (9, 4, True)])
+def test_k9_matches_plain(dev, B, T, flip):
+    """K9 against its plain version from the same cold start: ok lanes
+    and locks equal, frequency and centre within 5e-3 Hz, C/N0 within
+    1e-2 dB, each baseband sample (the prefix sum's differences) within
+    1 LSB, the tail columns holding the totals."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    blocks = _scan_inputs(dev, B, T, cfg, seed=10 + B)
+    n = cfg.fftsize
+    if flip:  # I and Q swapped in the data, swapped back by flip
+        blocks = blocks.view(B, T, n, 2).flip(-1).reshape(B, T, 2 * n)
+    carry1, out0 = carrier.pm_demod_block_raw(
+        carrier.init_carry(B, cfg, device=dev), blocks[:, 0], cfg, flip=flip)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    args = (carrier.pack_raw(blocks), out0.baseband, init,
+            cfg.samprate, cfg.actual_binsize, cfg.search_width,
+            cfg.cn0_threshold, carrier._window_bins(cfg), flip)
+    n0 = _kernels.LAUNCHES["pm_scan"]
+    cs_k, st_k, tot_k = carrier_cuda.pm_scan_locked_fused(*args, tail=2)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pm_scan"] == n0 + 1
+    cs_p, st_p, tot_p = carrier_cuda.pm_scan_locked_plain(*args, tail=2)
+    assert cs_k.shape == (B, T * n + 2) and st_k.shape == (B, T, 6)
+    assert bool((st_k[:, 1:, 3] > 0).all())
+    assert torch.equal(st_k[..., 3], st_p[..., 3])
+    thr = cfg.cn0_threshold
+    assert torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr)
+    for lane, tol in ((2, 5e-3), (5, 5e-3), (1, 1e-2)):
+        torch.testing.assert_close(st_k[..., lane], st_p[..., lane], atol=tol,
+                                   rtol=0)
+    bb_k = (cs_k[:, 1 : T * n + 1] - cs_k[:, : T * n]).int()
+    bb_p = (cs_p[:, 1 : T * n + 1] - cs_p[:, : T * n]).int()
+    assert int((bb_k - bb_p).abs().max()) <= 1
+    assert torch.equal(cs_k[:, :n], cs_p[:, :n])  # block 0: exact
+    assert torch.equal(cs_k[:, T * n:], tot_k[:, None].expand(B, 2))
+
+
+def test_k9_fallback_on_the_card(dev):
+    """A channel that loses lock after block 0 fails its window in block
+    2: pm_demod_scan_csum launches K9 once, discards it, and returns the
+    block scan + K3 result exactly."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    B, T = 6, 3
+    blocks = _scan_inputs(dev, B, T, cfg, seed=3, lost=2)
+    _kernels.reset_launches()
+    c, cs, st, tot = carrier.pm_demod_scan_csum(
+        carrier.init_carry(B, cfg, device=dev), blocks, cfg, tail=1)
+    torch.cuda.synchronize()
+    assert _kernels.backend_used["pm_scan"] == "fallback"
+    assert _kernels.LAUNCHES["pm_scan"] == 1
+    assert _kernels.LAUNCHES["prefix_sum"] == 1
+    assert _kernels.LAUNCHES["pm_locked"] + _kernels.LAUNCHES["spin_down"] >= T
+    c2, out = carrier.pm_demod_scan(carrier.init_carry(B, cfg, device=dev),
+                                    blocks, cfg)
+    assert torch.equal(cs, prefix_cuda.prefix_sum_blocks(out.baseband, tail=1))
+    assert torch.equal(tot, cs[:, -1])
+    assert torch.equal(st.carrier_freq, out.carrier_freq)
+    assert not bool(st.locked[1:, 2].any())
+
+
+def test_k8_k9_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    B, T, n = 2, 3, cfg.fftsize
+    packed = torch.zeros((B, T, n), dtype=torch.int32, device=dev)
+    bb0 = torch.zeros((B, n), dtype=torch.int16, device=dev)
+    init = torch.zeros((B, 4), dtype=torch.float32, device=dev)
+    rest = (32768.0, 4.0, 100.0, 21.0, 53)
+    with pytest.raises(ValueError, match="Doppler"):
+        carrier_cuda.pm_scan_locked_fused(packed, bb0, init, *rest,
+                                          dop=1e-9)
+    with pytest.raises(ValueError, match="T >= 2"):
+        carrier_cuda.pm_scan_locked_fused(packed[:, :1], bb0, init, *rest)
+    with pytest.raises(ValueError, match="int32"):
+        carrier_cuda.pm_scan_locked_fused(packed.view(torch.float32), bb0,
+                                          init, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        carrier_cuda.pm_scan_locked_fused(packed[:, :, ::2], bb0[:, ::2],
+                                          init, *rest)
+    with pytest.raises(ValueError, match="bb0"):
+        carrier_cuda.pm_scan_locked_fused(packed, bb0.cpu(), init, *rest)
+    with pytest.raises(ValueError, match="init"):
+        carrier_cuda.pm_scan_locked_fused(packed, bb0, init.double(), *rest)
+    first1 = torch.zeros(B, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        carrier_cuda.windowed_dft_raw(bb0, first1, 53)
+    with pytest.raises(ValueError, match="contiguous"):
+        carrier_cuda.windowed_dft_raw(packed[:, 0, ::2], first1, 53)
+    with pytest.raises(ValueError, match="first1"):
+        carrier_cuda.windowed_dft_raw(packed[:, 0], first1[:1], 53)
+    with pytest.raises(ValueError, match="wlen"):
+        carrier_cuda.windowed_search_raw(packed[:, 0], first1, first1[:1], 53,
+                                         32768.0, 4.0)
+    with pytest.raises(ValueError, match="out of range 3"):
+        carrier_cuda.windowed_search_raw(packed[:, 0], first1, first1, 2,
+                                         32768.0, 4.0)
