@@ -19,8 +19,13 @@ channel rate; four blocks through ``receive_blocks_pipelined``; the
 clean, mid and threshold blocks again with
 ``PipelineConfig(pm_backend="fused_scan")`` (kernel K9 runs the pm
 blocks after the cold start in one launch; the threshold block falls
-back to the block scan); and a narrowband block (128 channels at
-32,768 sps, n = 4096) whose locked blocks search with kernel K8.
+back to the block scan); a narrowband block (128 channels at
+32,768 sps, n = 4096) whose locked blocks search with kernel K8; and
+the classic Viterbi API (kernel K10, one launch per trellis step): K10
+against its plain version at K=24, the threshold block again with
+``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
+backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
+CLI in a subprocess.
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -31,8 +36,8 @@ version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs) and, where
 one PyTorch call computes the same function, that call's time; last,
-the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9 and 10
-end with profile lines: per-stage milliseconds of three runs of the block,
+the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9, 10 and
+11 end with profile lines: per-stage milliseconds of three runs of the block,
 and the device busy time of one run under torch.profiler.
 """
 
@@ -73,6 +78,11 @@ I32_OPS_PER_S = 132 * 64 * 1.98e9
 # excluded
 ACS_OPS_PER_PAIR = 20
 FANO_OPS_PER_STEP = 30
+# integer operations per butterfly of K10 in csrc/viterbi_acs.cu (two
+# AND+POPC+AND+XOR branch bits, two symbol selects, the adjust, the
+# complementary metric, four adds, two compares, two selects), address
+# arithmetic and the ballot excluded
+ACS10_OPS_PER_BUTTERFLY = 22
 
 # narrowband path (phase 10): the reference's -r option at 32,768 sps,
 # binsize 8 -> n = 4096, below the 8192-sample chunk of the fused kernels,
@@ -1241,6 +1251,331 @@ def phase_narrowband(dev, nchan: int = NCHAN):
     return launches
 
 
+def viterbi_lanes_check(iq, nframes: int, cfg, rec, label: str) -> int:
+    """Up to 2 of a block's Viterbi lanes again through the decode
+    stage's Viterbi decoder (``cfg.decode.viterbi_backend``), with the
+    kernels and under plain_reference(): the bits must be equal.
+    Returns the number of lanes checked."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
+    from isee3_decoder_tpu_torch.models.decode import (
+        DECODER_VITERBI,
+        _viterbi_decode,
+    )
+    from isee3_decoder_tpu_torch.models.pipeline import receive_block_device_soft
+
+    _, soft = receive_block_device_soft(iq, nframes, FRAMESYMBOLS, cfg)
+    lanes = np.nonzero(rec.decoder == DECODER_VITERBI)[0][:2]
+    fsyms = torch.stack([soft[lane // nframes, s : s + FRAMESYMBOLS]
+                         for lane, s in zip(lanes, rec.start_symbol[lanes])])
+    bits_k = _viterbi_decode(fsyms, cfg.decode)
+    with _kernels.plain_reference():
+        bits_p = _viterbi_decode(fsyms, cfg.decode)
+    require(torch.equal(bits_k, bits_p),
+            f"{label}: Viterbi lanes differ between kernels and plain")
+    log(f"  {lanes.size} Viterbi lane(s) kernel path == plain path "
+        f"(viterbi_backend {cfg.decode.viterbi_backend!r})")
+    return int(lanes.size)
+
+
+def check_viterbi_acs(dev, batch: int) -> dict:
+    """Phase 11(a): K10 against its plain version at K=24, 8 trellis
+    steps at B=2 in int16 and in int32 and at B=``batch`` in int32 (the
+    threshold block's Viterbi batch, the main path's shape), from random
+    metrics inside the renorm range, each step fed the previous one's
+    minimum: new metrics, decision words and minima bit-equal.  Then
+    K10's ms per step (CUDA events) beside the plain version's and the
+    bound, at B=1 and B=8 in both types and at B=``batch`` in int32,
+    each launch's output checked bit-equal to the plain version's on the
+    same buffers; the main-path record is returned."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.ops import viterbi_acs_cuda as vac
+
+    n = code.nstates
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for B, dtype in ((2, torch.int16), (2, torch.int32), (batch, torch.int32)):
+        mk = mp = ri(0, 12000, (B, n)).to(dtype)
+        ak = ap = torch.zeros(B, dtype=torch.int32, device=dev)
+        for t in range(8):
+            syms = ri(0, 256, (B, 2))
+            mk, dk, ak = vac.acs_step(mk, syms, ak, code)
+            mp, dp, ap = vac.acs_step_plain(mp, syms, ap, code)
+            require(torch.equal(mk, mp) and torch.equal(dk, dp)
+                    and torch.equal(ak, ap),
+                    f"K10 differs from its plain version (B={B}, {dtype}, "
+                    f"step {t})")
+    del mk, mp, dk, dp
+
+    def timed(B: int, dtype) -> dict:
+        """K10 as update_blk launches it (buffers made beforehand; the
+        minimum cell is not reset, which changes no work and leaves the
+        same minimum): CUDA-event ms per launch, and the kernel's own
+        time under torch.profiler; then the outputs of these launches
+        against the plain version on the same inputs, bit-equal."""
+        m = ri(0, 12000, (B, n)).to(dtype)
+        out = torch.empty_like(m)
+        dec = torch.empty((B, n // 32), dtype=torch.int32, device=dev)
+        syms = ri(0, 256, (B, 2))
+        adj = ri(0, 600, (B,))
+        gmin = torch.full((B,), vac.INT32_MAX, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run():
+            vac.launch(m, syms, adj, out, dec, gmin, code, stream=stream)
+
+        e = m.element_size()
+        rec = dict(
+            ms=cuda_ms(run, 50),
+            device_ms=kernel_device_ms(run, 50, "viterbi_acs_kernel"),
+            plain_ms=cuda_ms(lambda: vac.acs_step_plain(m, syms, adj, code), 3),
+            library_ms=None,
+            **bound(B * (2 * n * e + n // 8) + syms.numel() * 4 + 2 * B * 4,
+                    B * (n // 2) * ACS10_OPS_PER_BUTTERFLY, I32_OPS_PER_S),
+        )
+        want = vac.acs_step_plain(m, syms, adj, code)
+        require(torch.equal(dec, want[1]) and torch.equal(gmin, want[2]),
+                f"K10 timed at B={B} {dtype}: decisions or minimum differ "
+                "from the plain version")
+        rec["max_abs_err"] = int((out.to(torch.int64)
+                                  - want[0].to(torch.int64)).abs().max())
+        require(rec["max_abs_err"] == 0,
+                f"K10 timed at B={B} {dtype}: metrics differ from the plain "
+                "version")
+        return rec
+
+    table = {f"B={B} {str(dt)[6:]}": timed(B, dt) for B in (1, 8)
+             for dt in (torch.int16, torch.int32)}
+    rec = timed(batch, torch.int32)
+    table[f"B={batch} int32 (main path)"] = rec
+    log(f"phase 11 classic Viterbi (a): K10 == plain at K=24, 8 steps, B=2 "
+        f"int16 and int32, B={batch} int32 (metrics, decisions, minima "
+        "bit-equal; each timed shape's outputs too); ms per step "
+        + json.dumps({k: {f: round(v[f], 5) for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms")}
+                      for k, v in table.items()}))
+    return {"viterbi_acs": rec}
+
+
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over reps calls of fn (after one warm call), from torch.profiler
+    (which may miss a few of the first launches of a window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    require(len(spans) >= reps // 2, f"profiler saw {len(spans)} of {reps} "
+            f"{name} launches")
+    return sum(spans) / len(spans) / 1e3
+
+
+def classic_threshold(dev, nsamples: int, nframes: int, pm, sym,
+                      rec_thr) -> dict:
+    """Phase 11(b): phase 5's threshold block with DecodeConfig(
+    viterbi_backend="jnp"): phase 5's frames, flags, labels and start
+    symbols on all 128 channels, K10 1024 times per frame chunk and no
+    K5/K6; the host tail of both backends in turns on the same IQ, and a
+    profile.  Returns the counted run's launches."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMEBITS
+    from isee3_decoder_tpu_torch.models.decode import (
+        DECODER_VITERBI,
+        DecodeConfig,
+    )
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        receive_block,
+    )
+
+    t0 = time.perf_counter()
+    classic = PipelineConfig(pm=pm, sym=sym,
+                             decode=DecodeConfig(viterbi_backend="jnp"))
+    fused = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig())
+    _, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_THRESHOLD, seed=11)
+    receive_block(iq, nframes, classic)  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    rec, _ = receive_block(iq, nframes, classic)
+    torch.cuda.synchronize()
+    launches, bb = dict(_kernels.LAUNCHES), dict(_kernels.backend_used)
+    nvit = int((rec.decoder == DECODER_VITERBI).sum())
+    log(f"phase 11 classic Viterbi (b): threshold block, viterbi_backend="
+        f"\"jnp\": {nvit} Viterbi lanes; launches {launches}; backend {bb} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for field in ("data", "good", "decoder", "start_symbol"):
+        require(np.array_equal(getattr(rec, field), getattr(rec_thr, field)),
+                f"classic Viterbi threshold block: differs from phase 5 in "
+                f"{field}")
+    nk10 = launches["viterbi_acs"]
+    require(launches["viterbi_a"] == 0 and launches["viterbi_b"] == 0,
+            "classic Viterbi threshold block: K5/K6 launched")
+    require(nk10 > 0 and nk10 % FRAMEBITS == 0
+            and nk10 // FRAMEBITS <= max(nvit, 1),
+            f"classic Viterbi threshold block: K10 launched {nk10} times "
+            f"for {nvit} lanes")
+    require(bb.get("viterbi") == "cuda" and bb.get("viterbi_path") == "classic",
+            "classic Viterbi threshold block: K10 did not run")
+    tails = {"fused": [], "jnp": []}
+    for name in ("fused", "jnp", "jnp", "fused"):
+        cfg = classic if name == "jnp" else fused
+        tails[name].append(stage_ms(iq, nframes, cfg)["host_tail"])
+    log(f"  frames == phase 5's on all {NCHAN} channels, {nk10 // FRAMEBITS} "
+        f"frame chunk(s); host tail (Viterbi) ms in turns, same IQ: fused "
+        f"{tails['fused']}, classic {tails['jnp']}")
+    viterbi_lanes_check(iq, nframes, classic, rec, "classic Viterbi threshold "
+                        "block")
+    profile_block(iq, nframes, classic, "threshold, classic Viterbi")
+    return launches
+
+
+def classic_vdecode(dev) -> dict:
+    """Phase 11(c): vdecode_stream at K=24 on a noisy 3-frame stream: the
+    jnp (K10) and fused (K5/K6) backends give the same bits and symbol
+    errors, and the bits are the data at lag delay + K - 2.  Returns the
+    jnp run's launches."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.config import FRAMEBITS
+    from isee3_decoder_tpu_torch.models.legacy import vdecode_stream
+    from isee3_decoder_tpu_torch.ops.encode import encode_bits
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    nbits, delay = 3 * FRAMEBITS, 200
+    data = torch.as_tensor(rng.integers(0, 2, nbits), device=dev)
+    syms, _ = encode_bits(data, 0, code)
+    noise = torch.as_tensor(rng.normal(0.0, 45.0, syms.shape),
+                            dtype=torch.float32, device=dev)
+    soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    out, launches = {}, {}
+    for backend in ("jnp", "fused"):
+        _kernels.reset_launches()
+        t1 = time.perf_counter()
+        out[backend] = vdecode_stream(soft, delay, code, backend, device=dev)
+        dt = time.perf_counter() - t1
+        launches[backend] = dict(_kernels.LAUNCHES)
+        log(f"  vdecode {backend}: {dt * 1e3:.1f} ms, symbol errors "
+            f"{out[backend].symbol_errors.tolist()}, launches "
+            f"{ {k: v for k, v in launches[backend].items() if v} }")
+    a, b = out["jnp"], out["fused"]
+    lag = code.k - 2
+    require(launches["jnp"]["viterbi_acs"] == nbits, "vdecode jnp: K10 "
+            "launches")
+    require(np.array_equal(a.bits, b.bits)
+            and np.array_equal(a.symbol_errors, b.symbol_errors),
+            "vdecode: the jnp and fused backends differ")
+    require(np.array_equal(a.bits[0, lag:],
+                           data[: a.bits.shape[1] - lag].cpu().numpy()),
+            "vdecode: bits differ from the data at lag delay + K - 2")
+    require(0 < int(a.symbol_errors[0]) < 200, "vdecode: symbol errors "
+            f"{a.symbol_errors.tolist()} (a few expected)")
+    log(f"phase 11 classic Viterbi (c): vdecode_stream K=24, {nbits} bits, "
+        f"delay {delay}: jnp == fused, bits == data at lag {delay + lag} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches["jnp"]
+
+
+def manchester(symbols: np.ndarray, symbolsamples: float) -> np.ndarray:
+    """±1 Manchester waveform of 0/1 symbols (icesync.c:90-98: symbol 1 is
+    -1 then +1)."""
+    nsym = len(symbols)
+    pos = np.arange(int(np.ceil(nsym * symbolsamples))) / symbolsamples
+    idx = np.minimum(pos.astype(np.int64), nsym - 1)
+    level = np.where(symbols[idx] > 0, 1.0, -1.0)
+    return np.where(pos - idx >= 0.5, level, -level)
+
+
+def classic_icesync(dev) -> dict:
+    """Phase 11(d): icesync_frames on Manchester baseband of 3 frames at
+    16,384 sps (tests/test_cli_and_legacy.py's synthetic case): a sent
+    frame matched with fewer than 50 symbol errors.  Returns the run's
+    launches."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.config import FRAMEBITS, SYNC_STATE
+    from isee3_decoder_tpu_torch.models.legacy import icesync_frames
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    frames = random_frames(rng, 3)
+    fbits = bytes_to_bits(torch.as_tensor(frames.reshape(-1)))
+    fsyms = encode_bits(fbits, SYNC_STATE, code)[0].numpy()
+    samprate = 16384.0
+    wave = manchester(fsyms, samprate / 1024.0)
+    samples = (60.0 * wave + rng.normal(0, 8, len(wave))).astype(np.int64)
+    _kernels.reset_launches()
+    got = icesync_frames(samples, samprate, 1024.0, max_frames=2, code=code,
+                         device=dev)
+    launches = dict(_kernels.LAUNCHES)
+    matched = [fr for fr in got
+               if any(np.array_equal(fr.data, f) for f in frames)]
+    log(f"phase 11 classic Viterbi (d): icesync {len(got)} frames, matched "
+        f"{len(matched)}, symbol errors {[fr.symbol_errors for fr in got]}, "
+        f"metric ranges {[(fr.min_metric, fr.max_metric) for fr in got]}; "
+        f"K10 launches {launches['viterbi_acs']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(matched and all(fr.symbol_errors < 50 for fr in matched),
+            "icesync: no transmitted frame matched")
+    require(launches["viterbi_acs"] == FRAMEBITS * len(got),
+            "icesync: K10 launches")
+    return launches
+
+
+def classic_vtest() -> None:
+    """Phase 11(e): the vtest CLI in a subprocess on the card: FER 0/8 at
+    5 dB on the classic decoder, then the time trial of both backends."""
+    t0 = time.perf_counter()
+    args = "-l 1024 -n 8 -b 8"
+
+    def run(cmd: list) -> str:
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=300)
+        require(r.returncode == 0, f"vtest failed: {r.stderr[-2000:]}")
+        return r.stdout
+
+    # the BER run and the two time trials in one process: one start-up
+    ber = f"{args} -e 5 --backend jnp"
+    trials = [f"{args} --backend {b}" for b in ("jnp", "fused")]
+    out = run([sys.executable, "-c", "import sys; from "
+               f"{PKG}.cli import vtest; [vtest.main(a.split()) for a in "
+               "sys.argv[1:]]", ber, *trials])
+    bers = [ln for ln in out.splitlines() if ln.startswith("BER ")]
+    speeds = [ln for ln in out.splitlines() if ln.startswith("decoder speed")]
+    require(len(bers) == 1 and len(speeds) == 2, f"vtest: {out[-500:]}")
+    log(f"  vtest {ber}: {bers[0]}")
+    require("FER 0/8 " in bers[0], "vtest -e 5: frame errors")
+    for t, sp in zip(trials, speeds):
+        log(f"  vtest {t}: {sp}")
+    log(f"phase 11 classic Viterbi (e): vtest CLI ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: package {PKG}/ not found beside this script",
@@ -1259,17 +1594,14 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from isee3_decoder_tpu_torch import _kernels
-    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
     from isee3_decoder_tpu_torch.models.decode import (
         DECODER_VITERBI,
         DecodeConfig,
-        _viterbi_decode,
     )
     from isee3_decoder_tpu_torch.models.pipeline import (
         PipelineConfig,
         demod_to_symbols,
         receive_block,
-        receive_block_device_soft,
     )
     from isee3_decoder_tpu_torch.ops.carrier import PMConfig
     from isee3_decoder_tpu_torch.ops.symbols import SymConfig
@@ -1376,17 +1708,7 @@ def main() -> int:
     require(backends_thr.get("viterbi") == "cuda",
             "threshold regime: Viterbi not on CUDA")
     # up to 2 of the Viterbi lanes again: kernels vs plain versions
-    _, soft = receive_block_device_soft(iq, nframes, FRAMESYMBOLS, thr)
-    lanes = vit[:2]
-    fsyms = torch.stack([soft[lane // nframes, s : s + FRAMESYMBOLS]
-                         for lane, s in zip(lanes, rec.start_symbol[lanes])])
-    bits_k = _viterbi_decode(fsyms, thr.decode)
-    with _kernels.plain_reference():
-        bits_p = _viterbi_decode(fsyms, thr.decode)
-    require(torch.equal(bits_k, bits_p),
-            "threshold regime: Viterbi lanes differ between kernels and plain")
-    del soft, fsyms
-    log(f"  {lanes.size} Viterbi lane(s) kernel path == plain path")
+    viterbi_lanes_check(iq, nframes, thr, rec, "threshold regime")
     # K5/K6 timed at the batch the main path's fallback ran
     checks.update(viterbi_cycle_check(dev, int(vit.size), seed=25))
     profile_block(iq, nframes, thr, "threshold")
@@ -1405,6 +1727,19 @@ def main() -> int:
                           phase_narrowband(dev)):
         for k, v in path_launches.items():
             launches[k] += v
+
+    # ---- phase 11: the classic Viterbi API (K10)
+    t0 = time.perf_counter()
+    checks.update(check_viterbi_acs(
+        dev, max(int((rec_thr.decoder == DECODER_VITERBI).sum()), 1)))
+    for path_launches in (classic_threshold(dev, nsamples, nframes, pm, sym,
+                                            rec_thr),
+                          classic_vdecode(dev), classic_icesync(dev)):
+        for k, v in path_launches.items():
+            launches[k] += v
+    torch.cuda.empty_cache()
+    classic_vtest()
+    log(f"phase 11: ok ({time.perf_counter() - t0:.1f} s)")
     for k, v in launches.items():
         require(v > 0, f"kernel {k} never launched on the main path")
 
@@ -1425,6 +1760,8 @@ def main() -> int:
         "windowed_dft": ("carrier.cu",
                          "isee3_decoder_tpu/ops/carrier_pallas.py:63"),
         "pm_scan": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:363"),
+        "viterbi_acs": ("viterbi_acs.cu",
+                        "isee3_decoder_tpu/ops/viterbi_pallas.py:39"),
     }
     kernels = [
         {

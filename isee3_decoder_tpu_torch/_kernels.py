@@ -47,11 +47,14 @@ LAUNCHES: dict[str, int] = {
     "channelize2": 0,
     "windowed_dft": 0,
     "pm_scan": 0,
+    "viterbi_acs": 0,
 }
 #: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi", and
 #: "search" for K8, "pm_scan" for K9) → "cuda" or "torch", last run;
 #: "pm_scan" reads "fallback" when the fused scan's result was discarded
-#: for the block scan (carrier.pm_demod_scan_csum)
+#: for the block scan (carrier.pm_demod_scan_csum); "viterbi_path" reads
+#: "classic" (K10, ops/viterbi) or "fused" (K5/K6) for the Viterbi
+#: decoder that ran on the card
 backend_used: dict[str, str] = {}
 
 _lib: ctypes.CDLL | None = None
@@ -97,6 +100,10 @@ _SIGNATURES = {
     # thr, top, flip, tail, csum, stat, tot, stream
     "pm_scan_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                        _I, _I, _P, _P, _P, _P),
+    # metrics, out, syms, adjust, gmin, reset, renorm, dec, B, hbits,
+    # elem_size, q1, q2, g1flip, g2flip, stream
+    "viterbi_acs_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
 }
 
 

@@ -6,10 +6,12 @@ Reads 8-bit soft symbols on stdin, prints decoded 128-byte frames in hex.
 
 Flags (decode.c:75-107): -F fano only, -V viterbi only, -p persistent,
 -n suppress bad frames, -r symrate, -s fano scale, -m fano maxcycles,
--d fano delta, -v verbose; --strict-labels, --no-quicklook as in the JAX
-package's CLI, whose output text this one reproduces.  --device picks
-where it runs: "cuda" (default; the port's kernels) or "cpu" (their
-plain versions).
+-d fano delta, -v verbose; --strict-labels, --no-quicklook and --backend
+as in the JAX package's CLI, whose output text this one reproduces
+(--backend defaults to the port's "fused"; "jnp" takes the classic
+decoder, kernel K10; all give the same bits).  --device picks where it
+runs: "cuda" (default; the port's kernels) or "cpu" (their plain
+versions).
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def main(argv=None) -> int:
     p.add_argument("-s", type=float, default=8.0, dest="fano_scale")
     p.add_argument("-m", type=int, default=100, dest="fano_maxcycles")
     p.add_argument("-d", type=int, default=None, dest="fano_delta")
+    p.add_argument("--backend", default="fused",
+                   choices=["jnp", "inplace", "fused"],
+                   help="Viterbi decoder (bit-identical outputs)")
     p.add_argument("--strict-labels", action="store_true",
                    help="disable the quicklook-EC middle tier so decoder"
                    " labels match decode.c exactly (frame bytes are"
@@ -66,6 +71,7 @@ def main(argv=None) -> int:
         # reference quirk: decode.c:202 passes a literal 100 to fano(); the
         # parsed -m value is only ever displayed
         fano_maxcycles=100,
+        viterbi_backend=a.backend,
         quicklook=not a.no_quicklook,
         qlec=not a.strict_labels,
     )

@@ -6,9 +6,10 @@ scattered symbol errors) and the tier-1 Fano walk (kernel K4) at a
 cycles-per-bit cap, packed into one uint8 buffer so the host pays one
 fetch.  The host tail re-runs the lanes that ran out of cycles at the
 full budget (same walk, so outcomes equal one full-budget pass), then
-sends what is left to the fused Viterbi decoder (kernels K5/K6, in
-chunks sized by the decision-memory budget) under the reference policy
-(decode.c:209-214):
+sends what is left to the Viterbi decoder (by default the fused
+kernels K5/K6; ``viterbi_backend="jnp"`` takes the classic API, kernel
+K10), in chunks sized by the decision-memory budget, under the reference
+policy (decode.c:209-214):
 
   Viterbi runs iff it is enabled AND (Fano is disabled OR (Fano failed
   AND (the previous frame decoded OR -p persistent))).
@@ -41,10 +42,10 @@ from isee3_decoder_tpu_torch.config import (
 )
 from isee3_decoder_tpu_torch.ops.encode import bits_to_bytes, encode_bits
 from isee3_decoder_tpu_torch.ops.fano import FanoParams, fano_decode
+from isee3_decoder_tpu_torch.ops import viterbi
 from isee3_decoder_tpu_torch.ops.syncword import find_sync, verify_frame
 from isee3_decoder_tpu_torch.ops.viterbi_fused import (
     decision_budget,
-    decode_frame_fused,
     frame_tape_bytes,
 )
 from isee3_decoder_tpu_torch.utils.metrics import decoder_amplitudes, gen_met
@@ -69,6 +70,13 @@ class DecodeConfig:
     #: identical outcomes, bounded tail latency.  None disables tiering.
     fano_tier1_maxcycles: int | None = 12
     code: CodeSpec = DEFAULT_CODE
+    #: Viterbi decoder, the JAX package's names: "fused" (kernels K5/K6,
+    #: the default here) or "jnp" (the classic API of ops/viterbi, kernel
+    #: K10, int32 metrics — the JAX package's default); "inplace" runs
+    #: K5/K6 too (the JAX package's XLA in-place step is not ported).
+    #: All three give the same bits.  The port defaults to "fused", the
+    #: decoder measured on the H100 for the bench's threshold regime.
+    viterbi_backend: str = "fused"
     #: quicklook tier: accept the QLI candidate (qdecode.c:129-134) only
     #: when re-encoding it reproduces every hard decision and the frame
     #: ends in the syncword — exactly what Fano would return
@@ -342,18 +350,18 @@ def fano_tier2_inplace(
 
 
 def _viterbi_decode(fsyms: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
-    """(L, FRAMESYMBOLS) soft symbols → (L, FRAMEBITS) uint8 bits by the
-    fused Viterbi decoder (K5/K6 on a CUDA tensor, their plain versions
-    on a CPU one), from SYNC_STATE to SYNC_STATE.  Frames go in chunks
-    as large as the decision-memory budget allows (one tape of
+    """(L, FRAMESYMBOLS) soft symbols → (L, FRAMEBITS) uint8 bits from
+    SYNC_STATE to SYNC_STATE by the decoder ``cfg.viterbi_backend``
+    names: the fused K5/K6 or the classic K10 on a CUDA tensor, their
+    plain versions on a CPU one.  Frames go in chunks as large as the
+    decision-memory budget allows (either decoder holds one tape of
     FRAMEBITS·n/8 bytes per frame; see decision_budget)."""
     per = frame_tape_bytes(FRAMEBITS, cfg.code)
     chunk = max(decision_budget(fsyms.device) // per, 1)
     return torch.cat([
-        decode_frame_fused(fsyms[lo : lo + chunk], FRAMEBITS, SYNC_STATE,
-                           SYNC_STATE, cfg.code)
-        for lo in range(0, fsyms.shape[0], chunk)
-    ])
+        viterbi.decode_frames(fsyms[lo : lo + chunk], FRAMEBITS, SYNC_STATE,
+                              SYNC_STATE, cfg.code, cfg.viterbi_backend)
+        for lo in range(0, fsyms.shape[0], chunk)])
 
 
 def viterbi_fallback_inplace(

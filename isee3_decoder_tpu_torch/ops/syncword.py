@@ -83,3 +83,36 @@ def verify_frame(frame_bits: torch.Tensor) -> torch.Tensor:
     weights = 1 << torch.arange(39, -1, -1, dtype=torch.int64,
                                 device=frame_bits.device)
     return (last40 * weights).sum(dim=-1) == SYNCWORD
+
+
+def framer_positions(bits: torch.Tensor) -> torch.Tensor:
+    """Hard framer: (B, N) 0/1 bits → (B, N) bool, True at the LAST bit of
+    every 40-bit syncword match (framer.c:61-95's shift register,
+    vectorized)."""
+    if bits.ndim == 1:
+        bits = bits[None, :]
+    B, N = bits.shape
+    x = bits.to(torch.int32)
+    eq = torch.ones((B, N), dtype=torch.bool, device=bits.device)
+    for k in range(40):
+        # bits[p-39+k] against syncword bit k (MSB first), wrapping as the
+        # JAX package's roll does; positions < 39 are masked below
+        eq &= torch.roll(x, 39 - k, dims=-1) == ((SYNCWORD >> (39 - k)) & 1)
+    return eq & (torch.arange(N, device=bits.device) >= 39)
+
+
+def phase_sync_peaks(symbols: torch.Tensor, code: CodeSpec = DEFAULT_CODE
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Even/odd-phase sync peaks over a frame of soft symbols — the
+    symbol-pair phasing detector of vdecode.c:110-141.  symbols: (B,
+    FRAMESYMBOLS + SYNCBITS) uint8.  Returns (peak_even, peak_odd), the
+    largest correlation whose window ENDS on an even / odd symbol."""
+    if symbols.ndim == 1:
+        symbols = symbols[None, :]
+    npos = symbols.shape[-1] - SYNCBITS
+    corr = sync_correlate(symbols, npos, code)
+    end_parity = (torch.arange(npos, device=symbols.device) + SYNCBITS - 1) % 2
+    neg = torch.tensor(-1_000_000, dtype=torch.int32, device=symbols.device)
+    even = torch.where(end_parity == 0, corr, neg).amax(dim=-1)
+    odd = torch.where(end_parity == 1, corr, neg).amax(dim=-1)
+    return even, odd

@@ -21,6 +21,7 @@ import os
 
 import torch
 
+from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
 from isee3_decoder_tpu_torch.ops.viterbi_cuda import _geometry, cycle_a, cycle_b
 from isee3_decoder_tpu_torch.ops.viterbi_inplace import (
@@ -92,6 +93,7 @@ def _update_frame_planes(metrics: torch.Tensor, syms: torch.Tensor,
     the renormalizations subtracted."""
     B, n = metrics.shape
     w, rowb, _ = _geometry(code)
+    _kernels.note_backend("viterbi_path", "fused")
     flat = _syms_i32(syms, B, nbits)
     dev = metrics.device
     ncycles, rem = divmod(nbits, w)

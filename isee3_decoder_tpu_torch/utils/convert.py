@@ -5,11 +5,12 @@ the pm carrier carry and the Fano metric table.  These helpers build the
 port's counterparts from the JAX package's objects (duck-typed: nothing
 here imports JAX), so a test can start both packages from identical
 state.  Fields that only select a JAX/TPU execution backend
-(``search_backend``, ``csum_backend``, ``viterbi_backend``, ...) have no
-counterpart and are dropped; ``pm_backend``, which selects the
-computation (block scan or fused scan), carries across.  The port keeps its own copy of the code
-tables (``isee3_decoder_tpu_torch.config``), so a JAX ``CodeSpec``
-becomes the port's equal one through ``code_spec``.
+(``search_backend``, ``csum_backend``, ...) have no counterpart and are
+dropped; ``pm_backend`` (block scan or fused scan) and
+``viterbi_backend`` (classic or fused decoder) carry across as they
+are.  The port keeps its own copy of the code tables
+(``isee3_decoder_tpu_torch.config``), so a JAX ``CodeSpec`` becomes the
+port's equal one through ``code_spec``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.models.pipeline import PipelineConfig
 from isee3_decoder_tpu_torch.ops.carrier import PMCarry, PMConfig
 from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+from isee3_decoder_tpu_torch.ops.viterbi import ViterbiState
 from isee3_decoder_tpu_torch.ops.viterbi_inplace import StreamState
 
 
@@ -92,6 +94,22 @@ def stream_state(src, device=None) -> StreamState:
             np.array(src.decisions, np.uint32).view(np.int32), device=device),
         dp=int(src.dp),
         total=int(src.total),
+        renorm=torch.as_tensor(np.array(src.renorm), dtype=torch.int32,
+                               device=device),
+    )
+
+
+def viterbi_state(src, device=None) -> ViterbiState:
+    """A JAX classic ViterbiState (or numpy arrays of its fields) → the
+    port's: metrics of the same type, the uint32 tape as int32 words of
+    the same bits, dp as a host int."""
+    metrics = np.array(src.metrics)
+    return ViterbiState(
+        metrics=torch.as_tensor(metrics, dtype=torch_dtype(metrics.dtype),
+                                device=device),
+        decisions=torch.as_tensor(
+            np.array(src.decisions, np.uint32).view(np.int32), device=device),
+        dp=int(src.dp),
         renorm=torch.as_tensor(np.array(src.renorm), dtype=torch.int32,
                                device=device),
     )

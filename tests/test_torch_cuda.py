@@ -18,6 +18,8 @@ from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, prefix_cuda
 from isee3_decoder_tpu_torch.ops import channelizer, channelizer_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda, viterbi_fused
+from isee3_decoder_tpu_torch.ops import viterbi, viterbi_acs_cuda
+from isee3_decoder_tpu_torch.models import legacy
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import FanoParams, _fano_decode_packed
 from isee3_decoder_tpu_torch.utils.devicesignal import (
@@ -29,6 +31,7 @@ from isee3_decoder_tpu_torch.utils.devicesignal import (
 pytestmark = pytest.mark.cuda
 
 K7 = CodeSpec("TESTK7", 0o171, 0o133, 7, 0, 0)
+K9F = CodeSpec("TESTK9F", 0o713, 0o715, 9, 0, 1)
 K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
 K18 = CodeSpec("TESTK18", 0o654321, 0o735271, 18, 0, 1)
 
@@ -186,6 +189,132 @@ def test_viterbi_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="nsteps"):
         viterbi_cuda.cycle_b(m, torch.zeros((1, 2 * 14), dtype=torch.int32,
                                             device=dev), K15, 14)
+
+
+@pytest.mark.parametrize("code", [K7, K9F, K15, DEFAULT_CODE],
+                         ids=["K7", "K9F", "K15", "MCQLI24"])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+def test_k10_step_exact(dev, code, dtype):
+    """One K10 step (non-zero adjust) against its plain version: new
+    metrics, decision words and the global minimum, bit for bit."""
+    B = 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(code.k)
+    m = torch.randint(-3000, 9000, (B, code.nstates), generator=gen,
+                      device=dev, dtype=torch.int32).to(dtype)
+    syms = torch.randint(0, 256, (B, 2), generator=gen, device=dev,
+                         dtype=torch.int32)
+    adj = torch.randint(0, 600, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n0 = _kernels.LAUNCHES["viterbi_acs"]
+    got = viterbi_acs_cuda.acs_step(m, syms, adj, code)
+    want = viterbi_acs_cuda.acs_step_plain(m, syms, adj, code)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_acs"] == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("code", [K9F, K15], ids=["K9F", "K15"])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+def test_update_blk_on_the_card_equals_the_cpu(dev, code, dtype):
+    """update_blk through K10 (the three rotating minimum buffers, the
+    renorm folded in the kernel) on a wrapping tape, in two calls, equals
+    the plain update_blk on the CPU: metrics, tape, dp and renorm.  The
+    input state's metrics and renorm are left as they were."""
+    rng = np.random.default_rng(code.k)
+    B, tape = 2, 50
+    soft = rng.integers(0, 256, (B, 2 * 70)).astype(np.uint8)
+    st_k = viterbi.create(tape, B, code, 5, dtype, device=dev)
+    st_p = viterbi.create(tape, B, code, 5, dtype, device="cpu")
+    st0, m0, r0 = st_k, st_k.metrics.clone(), st_k.renorm.clone()
+    _kernels.reset_launches()
+    for part in (soft[:, :80], soft[:, 80:]):
+        st_k = viterbi.update_blk(st_k, part, code)
+    torch.cuda.synchronize()
+    assert torch.equal(st0.metrics, m0) and torch.equal(st0.renorm, r0)
+    assert _kernels.LAUNCHES["viterbi_acs"] == 70
+    assert _kernels.backend_used == {"viterbi": "cuda", "viterbi_path": "classic"}
+    for part in (soft[:, :80], soft[:, 80:]):
+        st_p = viterbi.update_blk(st_p, part, code)
+    for f in ("metrics", "decisions", "renorm"):
+        assert torch.equal(getattr(st_k, f).cpu(), getattr(st_p, f)), f
+    assert st_k.dp == st_p.dp == 70 % tape
+
+
+def test_decode_frame_k10_equals_fused_mcqli24(dev):
+    """Four noisy 1024-bit MCQLI-24 frames: the classic decoder through
+    K10 gives the fused K5/K6 decoder's bits, and the sent ones."""
+    rng = np.random.default_rng(24)
+    nbits, B = 1024, 4
+    bits = torch.as_tensor(rng.integers(0, 2, (B, nbits)), device=dev)
+    bits[:, -(DEFAULT_CODE.k - 1):] = 0
+    syms, _ = encode_bits(bits, SYNC_STATE, DEFAULT_CODE)
+    noise = torch.as_tensor(rng.normal(0, 60, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    n0 = _kernels.LAUNCHES["viterbi_acs"]
+    got = viterbi.decode_frame(soft, nbits, SYNC_STATE, 0)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_acs"] == n0 + nbits
+    want = viterbi_fused.decode_frame_fused(soft, nbits, SYNC_STATE, 0)
+    assert torch.equal(got, want)
+    assert torch.equal(got, bits.to(torch.uint8))
+
+
+def test_vdecode_stream_backends_agree_on_the_card(dev):
+    rng = np.random.default_rng(15)
+    bits = torch.as_tensor(rng.integers(0, 2, (2, 3000)), device=dev)
+    syms, _ = encode_bits(bits, 0, K15)
+    noise = torch.as_tensor(rng.normal(0, 50, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    a = legacy.vdecode_stream(soft, 100, K15, "jnp")
+    b = legacy.vdecode_stream(soft, 100, K15, "fused")
+    with _kernels.plain_reference():
+        c = legacy.vdecode_stream(soft, 100, K15, "jnp")
+    for r in (b, c):
+        np.testing.assert_array_equal(a.bits, r.bits)
+        np.testing.assert_array_equal(a.symbol_errors, r.symbol_errors)
+    lag = K15.k - 2
+    np.testing.assert_array_equal(a.bits[:, lag:],
+                                  bits[:, : a.bits.shape[1] - lag].cpu().numpy())
+
+
+def test_k10_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    def args(code=K15, dtype=torch.int16, B=2, sym_dtype=torch.int32):
+        return (torch.zeros((B, code.nstates), dtype=dtype, device=dev),
+                torch.zeros((B, 2), dtype=sym_dtype, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev), code)
+
+    k6 = CodeSpec("TESTK6", 0o75, 0o53, 6, 0, 0)
+    with pytest.raises(ValueError, match="7 <= K"):
+        viterbi_acs_cuda.acs_step(*args(code=k6))
+    with pytest.raises(ValueError, match="int16 or int32"):
+        viterbi_acs_cuda.acs_step(*args(dtype=torch.int64))
+    with pytest.raises(ValueError, match="syms"):
+        viterbi_acs_cuda.acs_step(*args(sym_dtype=torch.int64))
+    m, s, a, code = args()
+    with pytest.raises(ValueError, match="out"):
+        viterbi_acs_cuda.acs_step(m, s, a, code, out=m)
+    with pytest.raises(ValueError, match="dec"):
+        viterbi_acs_cuda.acs_step(m, s, a, code, dec=torch.zeros(
+            (2, 3), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="metrics"):
+        viterbi_acs_cuda.acs_step(m[:, :100], s, a, code)
+
+
+def test_update_blk_raises_when_the_library_fails(dev, monkeypatch):
+    """A CUDA state never falls back to the plain step."""
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_kernels, "lib", broken)
+    st = viterbi.create(8, 1, K15, 0, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        viterbi.update_blk(st, np.full(16, 128, np.uint8), K15)
 
 
 def _packed(dev, nwords: int, seed: int, lo: int = -20000, hi: int = 20000):

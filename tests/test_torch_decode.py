@@ -4,8 +4,11 @@ flags, decoder labels, start symbols and Fano cycles must all be exact —
 quicklook, QLEC, tier-1 Fano, the host tier-2 re-run and the Viterbi
 fallback (with and without the previous-frame gating) included.  The
 Viterbi cases use a K=15 code, whose 2^14-state trellis the plain K5/K6
-run quickly on the CPU."""
+run quickly on the CPU; each of them runs with both of the port's
+decoders (``viterbi_backend`` "jnp", the classic API, and "fused", K5/K6)
+against the JAX package's default "jnp"."""
 
+import dataclasses
 import io
 import sys
 
@@ -30,6 +33,16 @@ from isee3_decoder_tpu_torch.utils import convert
 NFRAMES = 2
 K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
 FIELDS = ("data", "good", "decoder", "start_symbol", "fano_cycles")
+BACKENDS = pytest.mark.parametrize("backend", ["jnp", "fused"])
+
+
+def _port_config(cfg, backend=None):
+    """The JAX config carried across, with the port's Viterbi decoder
+    ``backend`` in place of the JAX one when given."""
+    tcfg = convert.decode_config(cfg)
+    if backend is None:
+        return tcfg
+    return dataclasses.replace(tcfg, viterbi_backend=backend)
 
 
 def _streams(seed: int, sigmas, offs, code=jd.DEFAULT_CODE,
@@ -58,10 +71,10 @@ def _same(rec_t, rec_j):
         np.testing.assert_array_equal(getattr(rec_t, f), getattr(rec_j, f), f)
 
 
-def _compare(soft, cfg):
+def _compare(soft, cfg, backend=None):
     rec_j, ss_j = jd.decode_block(jnp.asarray(soft), NFRAMES, cfg)
     rec_t, ss_t = td.decode_block(torch.from_numpy(soft), NFRAMES,
-                                  convert.decode_config(cfg), device="cpu")
+                                  _port_config(cfg, backend), device="cpu")
     np.testing.assert_array_equal(ss_t, ss_j)
     _same(rec_t, rec_j)
     return rec_t
@@ -95,13 +108,17 @@ def test_decode_block_strict_labels_matches_jax():
     assert (rec.decoder == td.DECODER_FANO).sum() >= 2
 
 
-def test_decode_block_viterbi_lanes_match_jax():
-    """Lanes the tier-2 Fano walk leaves undecoded go to the fused
-    Viterbi (the plain K5/K6 here): σ=90 lanes come out good and equal
-    to the JAX package's Viterbi output."""
+@BACKENDS
+def test_decode_block_viterbi_lanes_match_jax(backend):
+    """Lanes the tier-2 Fano walk leaves undecoded go to the Viterbi
+    fallback (the plain K10 or K5/K6 here): σ=90 lanes come out good and
+    equal to the JAX package's Viterbi output."""
     frames, soft = _streams(5, [90.0, 0.0, 95.0], [9, 3, 17], code=K15)
     cfg = jd.DecodeConfig(code=K15, fano_tier1_maxcycles=1, fano_maxcycles=2)
-    rec = _compare(soft, cfg)
+    _kernels.reset_launches()
+    rec = _compare(soft, cfg, backend)
+    assert _kernels.backend_used["viterbi_path"] == (
+        "classic" if backend == "jnp" else "fused")
     vit = rec.decoder == td.DECODER_VITERBI
     assert vit.sum() >= 2 and (vit & rec.good).any(), rec.decoder
     # at σ=90 a Viterbi frame may carry bit errors and still end in the
@@ -132,8 +149,9 @@ def test_decode_block_viterbi_lane_mcqli24_matches_jax():
     assert (rec.decoder == td.DECODER_VITERBI).any()
 
 
+@BACKENDS
 @pytest.mark.parametrize("persistent", [False, True], ids=["gated", "persistent"])
-def test_decode_frames_batch_matches_jax(persistent):
+def test_decode_frames_batch_matches_jax(persistent, backend):
     """Channels × frames as one batch; without -p a failed frame goes to
     Viterbi only after a decoded frame of its channel (prev_lock enters
     frame 0), with -p every failed frame does."""
@@ -146,7 +164,7 @@ def test_decode_frames_batch_matches_jax(persistent):
     lock = np.array([True, False, True, True])
     rec_j = jd.decode_frames_batch(soft, ss, nfr, cfg, prev_lock=lock)
     rec_t = td.decode_frames_batch(torch.from_numpy(soft), ss, nfr,
-                                   convert.decode_config(cfg), prev_lock=lock,
+                                   _port_config(cfg, backend), prev_lock=lock,
                                    device="cpu")
     _same(rec_t, rec_j)
     assert (rec_t.decoder == td.DECODER_VITERBI).any()
@@ -154,13 +172,14 @@ def test_decode_frames_batch_matches_jax(persistent):
         assert (rec_t.decoder != td.DECODER_VITERBI).sum() > 4
 
 
-def test_decode_stream_and_format_frame_match_jax():
+@BACKENDS
+def test_decode_stream_and_format_frame_match_jax(backend):
     """The stream walk (sync search, lock, -p Viterbi, purge) in two
     calls carrying the state, and the printed frames."""
     _, soft = _streams(8, [0.0, 90.0], [21, 40], code=K15, nframes=4)
     cfg = jd.DecodeConfig(code=K15, fano_tier1_maxcycles=1, fano_maxcycles=2,
                           persistent=True)
-    tcfg = convert.decode_config(cfg)
+    tcfg = _port_config(cfg, backend)
     recs_j, st_j = jd.decode_stream(soft, cfg, max_frames=1)
     recs_t, st_t = td.decode_stream(soft, tcfg, max_frames=1, device="cpu")
     more_j, st_j = jd.decode_stream(soft, cfg, st_j)
