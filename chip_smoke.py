@@ -25,7 +25,8 @@ the classic Viterbi API (kernel K10, one launch per trellis step): K10
 against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
-CLI in a subprocess.
+CLI in a subprocess.  Last, after every timed block, the device time of
+kernels K8, K5 and K6 under torch.profiler (phase 12).
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -35,7 +36,8 @@ path, its error against the plain version, its time, the plain
 version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs) and, where
-one PyTorch call computes the same function, that call's time; last,
+one PyTorch call computes the same function, that call's time (and for
+K8, K5 and K6 the kernel's device time, ``device_ms``); last,
 the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9, 10 and
 11 end with profile lines: per-stage milliseconds of three runs of the block,
 and the device busy time of one run under torch.profiler.
@@ -70,12 +72,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # FMA counted as two operations
 # INT32 lanes: 132 SMs x 64 x 1.98 GHz boost clock
 I32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations per ACS pair in csrc/viterbi.cu (two AND+POPC+AND+
-# XOR parities, symbol selects and add, 510-mt, four adds, two compares,
-# two selects) and per Fano micro-step in csrc/fano.cu (forward look,
-# threshold update, encoder step with two parities, metric selects,
-# bookkeeping) — counted from the kernels' source, address arithmetic
-# excluded
+# integer operations per ACS pair (two AND+POPC+AND+XOR parities, symbol
+# selects and add, 510-mt, four adds, two compares, two selects: the count
+# of the first K5/K6 in csrc/viterbi.cu, kept so that the bound stays the
+# same for every design) and per Fano micro-step in csrc/fano.cu (forward
+# look, threshold update, encoder step with two parities, metric selects,
+# bookkeeping) — address arithmetic excluded
 ACS_OPS_PER_PAIR = 20
 FANO_OPS_PER_STEP = 30
 # integer operations per butterfly of K10 in csrc/viterbi_acs.cu (two
@@ -83,6 +85,10 @@ FANO_OPS_PER_STEP = 30
 # complementary metric, four adds, two compares, two selects), address
 # arithmetic and the ballot excluded
 ACS10_OPS_PER_BUTTERFLY = 22
+
+# torch.profiler sessions a device-time reading may take: a session on
+# the card now and then records none of its kernels
+PROFILE_TRIES = 3
 
 # narrowband path (phase 10): the reference's -r option at 32,768 sps,
 # binsize 8 -> n = 4096, below the 8192-sample chunk of the fused kernels,
@@ -343,6 +349,29 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     return out
 
 
+def k8_inputs(dev, nchan: int = NCHAN):
+    """The narrowband path's K8 call at 128 x 4096, K = 53, on a clean
+    block of locked carriers → (cfg, carry, raw block, the arguments of
+    windowed_search_raw)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier
+
+    cfg = carrier.PMConfig(samprate=NB_SAMPRATE, binsize=NB_BINSIZE,
+                           search_width=200.0)
+    _, raw, carriers = bench_block(dev, nchan, cfg.fftsize, NOISE_CLEAN,
+                                   seed=8, samprate=NB_SAMPRATE,
+                                   carrier0=NB_CARRIER0, spacing=NB_SPACING)
+    carry = carrier.PMCarry(search_center=carriers,
+                            cn0=torch.full_like(carriers, 60.0))
+    require(carrier._fast_search_ok(carry, cfg), "K8 inputs not locked")
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    # the main path's call: K8 with the peak + Quinn pass in its launch
+    return cfg, carry, raw, (carrier.pack_raw(raw), first - 1, last - first,
+                             carrier._window_bins(cfg), cfg.samprate,
+                             cfg.actual_binsize)
+
+
 def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
     """Phase 2's K8/K9 part.  K8 (the windowed DFT search alone) at the
     narrowband path's shape, 128 x 4096, K = 53, beside K1 and the whole
@@ -358,23 +387,11 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
 
     out = {}
     # ---- K8 at n = 4096
-    cfg = carrier.PMConfig(samprate=NB_SAMPRATE, binsize=NB_BINSIZE,
-                           search_width=200.0)
-    n, K = cfg.fftsize, carrier._window_bins(cfg)
-    _, raw, carriers = bench_block(dev, nchan, n, NOISE_CLEAN, seed=8,
-                                   samprate=NB_SAMPRATE, carrier0=NB_CARRIER0,
-                                   spacing=NB_SPACING)
-    packed = carrier.pack_raw(raw)
-    carry = carrier.PMCarry(search_center=carriers,
-                            cn0=torch.full_like(carriers, 60.0))
-    require(carrier._fast_search_ok(carry, cfg), "K8 inputs not locked")
-    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    # the main path's call: K8 with the peak + Quinn pass in its launch
-    search = (packed, first - 1, last - first, K, cfg.samprate,
-              cfg.actual_binsize)
+    cfg, carry, raw, search = k8_inputs(dev, nchan)
+    packed, first1, K, n = search[0], search[1], search[3], cfg.fftsize
     s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*search)
     s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*search)
-    s_d = carrier_cuda.windowed_dft_raw(packed, first - 1, K)
+    s_d = carrier_cuda.windowed_dft_raw(packed, first1, K)
     err = float((s_k - s_p).abs().max())
     rel = err / float(s_p.abs().max())
     log(f"  K8 windowed_dft: {nchan} x {n}, K = {K}: peak bins equal "
@@ -387,6 +404,7 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
     require(rel <= 1e-5, "K8 bins off")
     require(torch.equal(s_d, s_k), "K8 bins differ with the peak pass")
     iq = carrier.iq_from_interleaved(raw)
+
     out["windowed_dft"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: carrier_cuda.windowed_search_raw(*search), 50),
@@ -404,13 +422,12 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
         f, _ = carrier.find_carrier_windowed_raw(packed, carry, cfg)
         return carrier_cuda.spin_down_fused(packed, f, cfg.samprate)
 
-    k1_args = (packed, first - 1, last - first, K, cfg.samprate,
-               cfg.actual_binsize)
+    k1_args = search  # K1 takes the same window
     r = out["windowed_dft"]
     log(f"  K8 with its peak pass {r['ms']:.4f} ms (bins alone "
-        f"{cuda_ms(lambda: carrier_cuda.windowed_dft_raw(packed, first - 1, K), 50):.4f}"
+        f"{cuda_ms(lambda: carrier_cuda.windowed_dft_raw(packed, first1, K), 50):.4f}"
         f", plain {r['plain_ms']:.4f}, torch.fft.fft "
-        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by "
         f"{r['bound_by']}); locked block at n = {n}: K1 "
         f"{cuda_ms(lambda: carrier_cuda.pm_locked_fused(*k1_args), 50):.4f} ms,"
         f" K8 + peak + K2 {cuda_ms(k8_block, 50):.4f} ms")
@@ -475,6 +492,29 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
     return out
 
 
+def cycle_inputs(dev, B: int, seed: int):
+    """One K=24 cycle's inputs for B frames: random metrics inside the
+    renorm range, the row and column phases' symbols and a base →
+    (metrics int16, row syms, column syms, base)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
+
+    w, rowb, _ = vc._geometry(code)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    m0 = ri(0, 12000, (B, code.nstates)).to(torch.int16)
+    syms = ri(0, 256, (B, 2 * w))
+    return (m0, syms[:, : 2 * rowb].contiguous(),
+            syms[:, 2 * rowb :].contiguous(), ri(1, 600, (B,)))
+
+
 def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
     """K5 (with a non-zero base) and K6 over one whole K=24 cycle of B
     frames of random metrics inside the renorm range, against their
@@ -487,17 +527,7 @@ def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
 
     w, rowb, _ = vc._geometry(code)
     n = code.nstates
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev,
-                             dtype=torch.int32)
-
-    m0 = ri(0, 12000, (B, n)).to(torch.int16)
-    syms = ri(0, 256, (B, 2 * w))
-    sa, sb = syms[:, : 2 * rowb].contiguous(), syms[:, 2 * rowb :].contiguous()
-    base = ri(1, 600, (B,))
+    m0, sa, sb, base = cycle_inputs(dev, B, seed)
     mk, mp = m0.clone(), m0.clone()
     _, dk = vc.cycle_a(mk, sa, code, rowb, base)
     _, dp = vc.cycle_a_plain(mp, sa, code, rowb, base)
@@ -512,6 +542,7 @@ def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
     # which changes no work the kernels do
     da = torch.empty((B, rowb, n // 32), dtype=torch.int32, device=dev)
     db = torch.empty((B, w - rowb, n // 32), dtype=torch.int32, device=dev)
+
     rec = {
         "viterbi_a": dict(
             max_abs_err=0,
@@ -533,11 +564,10 @@ def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
                     * ACS_OPS_PER_PAIR, I32_OPS_PER_S),
         ),
     }
-    log(f"  K5/K6 one K=24 cycle at B={B}: exact; K5 "
-        f"{rec['viterbi_a']['ms']:.3f} ms (plain {rec['viterbi_a']['plain_ms']:.3f},"
-        f" bound {rec['viterbi_a']['bound_ms']:.3f}), K6 "
-        f"{rec['viterbi_b']['ms']:.3f} ms (plain {rec['viterbi_b']['plain_ms']:.3f},"
-        f" bound {rec['viterbi_b']['bound_ms']:.3f})")
+    a, b_ = rec["viterbi_a"], rec["viterbi_b"]
+    log(f"  K5/K6 one K=24 cycle at B={B}: exact; K5 {a['ms']:.4f} ms (plain "
+        f"{a['plain_ms']:.3f}, bound {a['bound_ms']:.4f}), K6 {b_['ms']:.4f} "
+        f"ms (plain {b_['plain_ms']:.3f}, bound {b_['bound_ms']:.4f})")
     return rec
 
 
@@ -1376,15 +1406,91 @@ def kernel_device_ms(fn, reps: int, name: str) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(spans) >= reps // 2:
+            break
     require(len(spans) >= reps // 2, f"profiler saw {len(spans)} of {reps} "
-            f"{name} launches")
+            f"{name} launches in each of {PROFILE_TRIES} sessions")
     return sum(spans) / len(spans) / 1e3
+
+
+def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
+    """Device milliseconds per call of fn summed over every kernel it
+    launches, the kernels per call and their names, over reps calls
+    (after one warm call) under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(ev) >= reps // 2:
+            break
+    require(len(ev) >= reps // 2, f"profiler saw {len(ev)} kernels in {reps} "
+            f"calls in each of {PROFILE_TRIES} sessions")
+    spans = sum(e.time_range.end - e.time_range.start for e in ev)
+    return spans / reps / 1e3, len(ev) / reps, sorted({e.name for e in ev})
+
+
+def profile_kernels(dev, checks: dict, batch: int) -> None:
+    """Phase 12: the device time of K8, K5 and K6 from torch.profiler,
+    beside their CUDA-event times of phase 2 and 5 (the profiler's hooks
+    slow every later launch of the process, so this runs after every timed
+    block).  K8 at the narrowband shape, with torch.fft.fft's device time
+    over all bins of the same block, must show one kernel per call; K5/K6
+    over one K=24 cycle at B=2 and at the threshold block's batch (the
+    record keeps the latter)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda
+    from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
+
+    _, _, raw, search = k8_inputs(dev)
+    iq = carrier.iq_from_interleaved(raw)
+    k8_dev, per_call, names = calls_device_ms(
+        lambda: carrier_cuda.windowed_search_raw(*search), 50)
+    require(all("windowed_search_kernel" in nm for nm in names)
+            and per_call <= 1.0,
+            f"K8: {per_call} kernels per call ({names}), not one")
+    fft_dev = calls_device_ms(lambda: torch.fft.fft(iq, dim=-1), 50)[0]
+    checks["windowed_dft"].update(device_ms=k8_dev, library_device_ms=fft_dev)
+    nbins = iq.shape[1]
+    del raw, iq, search
+    w, rowb, _ = vc._geometry(code)
+    dev_ms = {}
+    for B in (2, batch):
+        m, sa, sb, base = cycle_inputs(dev, B, seed=26)
+        da = torch.empty((B, rowb, code.nstates // 32), dtype=torch.int32,
+                         device=dev)
+        db = torch.empty((B, w - rowb, code.nstates // 32), dtype=torch.int32,
+                         device=dev)
+        dev_ms[B] = (
+            kernel_device_ms(lambda: vc.cycle_a(m, sa, code, rowb, base, da),
+                             10, "viterbi_a_kernel"),
+            kernel_device_ms(lambda: vc.cycle_b(m, sb, code, w - rowb, db), 10,
+                             "viterbi_b_kernel"))
+        del m, da, db
+    checks["viterbi_a"]["device_ms"], checks["viterbi_b"]["device_ms"] = \
+        dev_ms[batch]
+    log(f"phase 12 device time (torch.profiler): K8 {k8_dev:.5f} ms in one "
+        f"kernel per call, torch.fft.fft {fft_dev:.5f} ms (all {nbins} bins); "
+        f"K5/K6 at K=24: "
+        + ", ".join(f"B={B} {a:.4f} / {b:.4f} ms" for B, (a, b)
+                    in dev_ms.items()))
+    torch.cuda.empty_cache()
 
 
 def classic_threshold(dev, nsamples: int, nframes: int, pm, sym,
@@ -1740,6 +1846,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     classic_vtest()
     log(f"phase 11: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 12: device times under torch.profiler, after every timed run
+    profile_kernels(dev, checks, max(int((rec_thr.decoder ==
+                                          DECODER_VITERBI).sum()), 1))
     for k, v in launches.items():
         require(v > 0, f"kernel {k} never launched on the main path")
 
@@ -1773,6 +1883,9 @@ def main() -> int:
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
+            **{key: checks[name][key] for key in ("device_ms",
+                                                  "library_device_ms")
+               if key in checks[name]},
         }
         for name in meta
     ]

@@ -82,9 +82,9 @@ _SIGNATURES = {
     "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P),
     # metrics, syms, base, dec, dec_bstride, dec_tstride, B, rowb, colb,
-    # nsteps, q1, q2, g1flip, g2flip, stream
+    # nsteps, q1, q2, g1flip, g2flip, tiles, threads, smem, stream
     "viterbi_a_launch": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P),
+                         _I, _I, _I, _I, _P),
     # metrics, syms, dec, dec_bstride, dec_tstride, mins, B, rowb, colb,
     # nsteps, q1, q2, g1flip, g2flip, stream
     "viterbi_b_launch": (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -92,10 +92,12 @@ _SIGNATURES = {
     # wide, nwords, taps, twid, M, P, TS, oversample, nsamp, out, smem_bytes,
     # stream
     "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _L, _P, _I, _P),
-    # packed, row_stride, iw, B, n, K, flip, samprate, binsize, spec, stat,
-    # cyc, stream
-    "windowed_dft_launch": (_P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
-                            _P),
+    # packed, row_stride, first1, wlen, B, n, K, flip, samprate, binsize,
+    # tab, smem, spec, freq, cyc, peak, stream
+    "windowed_dft_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I,
+                            _P, _P, _P, _P, _P),
+    # n, tab, stream
+    "twiddle_table_launch": (_I, _P, _P),
     # packed, row_stride, bb0, init, B, T, n, K, samprate, binsize, width,
     # thr, top, flip, tail, csum, stat, tot, stream
     "pm_scan_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,

@@ -124,7 +124,7 @@ __device__ __forceinline__ float quinn_tau(float x) {
          k * logf((x + 1.0f - r) / (x + 1.0f + r));
 }
 
-// ---- K1 pass 1 and K8: windowed DFT -----------------------------------
+// ---- K1 pass 1 and K9: windowed DFT -----------------------------------
 // spec[b][k] = sum_i x[i] exp(-2 pi j f i / n), f = first1_b + k, by the
 // split X[f] = sum_l W_n^{f l} sum_h x[256h+l] W_nhi^{(f mod nhi) h}.
 // chirp: NULL, or n de-chirp phasors exp(-2 pi j phi(i)) that rotate the
@@ -441,31 +441,468 @@ extern "C" int spin_down_launch(const int32_t* packed, int row_stride,
                           bb, stat, 2, mom, (cudaStream_t)stream);
 }
 
-// K8.  The windowed DFT search on its own: packed as for K1, iw (B, 2)
-// int32 [first1, wlen] -> spec (B, K) float2, bins first1 .. first1+K-1.
-// With stat non-NULL, K1's second pass follows in the same launch: the
-// masked last-max peak + Quinn -> stat (B, 4) f32 [-, -, freq, peak] and
-// cyc (B,) f32 cycles/sample, so a locked block's search costs the host
-// one call instead of the peak's dozens of small tensor operations.
-extern "C" int windowed_dft_launch(const int32_t* packed, int row_stride,
-                                   const int32_t* iw, int B, int n, int K,
-                                   int flip, float samprate, float binsize,
-                                   float* spec, float* stat, float* cyc,
+// ---- K8: the windowed DFT search and its peak pass in one launch --------
+// Replaces the TPU kernel _kernel (isee3_decoder_tpu/ops/carrier_pallas.py:63,
+// call :149), with K1's peak pass (masked last-max + Quinn) in the same
+// block.  One block per channel; the split n = 16 C (C columns of 16 rows,
+// i = C h + c):
+//   X[f] = sum_c W_n^{f c} A[f mod 16][c],  A[r][c] = sum_h x[C h + c] W_16^{r h}
+// 1. the row (4n bytes) is staged in shared memory by one TMA bulk copy
+//    that completes on an mbarrier (4-byte cp.async copies when the row is
+//    not 16-byte aligned), the twiddle tables by cp.async beside it;
+// 2. one thread per column: the 16-point DFT of the column in registers
+//    (radix 4 x 4, constant twiddles), all 16 residues into A;
+// 3. the bins by residue class: bins k = rho + 16 t read the same row of
+//    A; warp w takes the classes w and w + 8, four bins of each at a time.
+//    c = 32 m + lane, so W_n^{f c} = W_{n/32}^{f m} W_n^{f lane}: the first
+//    factor is the same for the whole warp (a broadcast from a shared
+//    table), the second W_n^{32 (p >> 5)} W_n^{p & 31} from two shared
+//    tables, once per lane and bin; the eight bins' chains run side by
+//    side, and their 16 sums are reduced over the lanes in halves (16
+//    shuffles for all of them);
+// 4. the masked last-max peak (equal energies keep the larger bin, k in
+//    1..wlen; energies rounded as the plain version rounds them): each
+//    warp keeps its candidate while it sums its bins, warp 0 reduces the
+//    warps' candidates and runs Quinn's estimator while the other warps
+//    store the bins.
+// Twiddles come from the table tab[j] = W_n^j (twiddle_table_kernel: the
+// double sincospi rounded to float, built once per n); every phase is an
+// exact 32-bit integer kept below its period by a compare and subtract (a
+// mask when the period is a power of two).  For n = 512 MC, MC = 1, 2, 4
+// or 8 (every n the narrowband path gives K8), the column loop has a
+// compile-time count and the four bins of a class share one table load:
+// W_{n/32}^{(f + 16 t) m} = W_{n/32}^{f m} W_MC^{t m}, an eighth root of
+// unity.
+// What bounds it on the H100: at 128 x 4096, K = 53 the bytes (2 MB, 0.6 us
+// at 3.35 TB/s) and the operations (~0.02 GFLOP) are far below the time of
+// a launch, so the design is about latency: one wave of 128 blocks, one per
+// channel (splitting a channel over more blocks would repeat its staging
+// and column DFTs and shorten no phase of its chain), the row in one bulk
+// copy, four phases between barriers.
+#define WD_THREADS 256
+#define WD_WARPS (WD_THREADS / 32)
+#define WD_ROWS 16
+#define WD_NB 4  // bins of each of its residue classes a warp sums at once
+#define WD_NCLS (16 / WD_WARPS)  // residue classes a warp takes
+
+__global__ void twiddle_table_kernel(int n, float2* __restrict__ tab) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  double s, c;
+  sincospi(2.0 * (double)j / (double)n, &s, &c);
+  tab[j] = make_float2((float)c, (float)-s);
+}
+
+// tab (n,) float2: W_n^j = exp(-2 pi i j / n), float of the double value
+extern "C" int twiddle_table_launch(int n, float* tab, void* stream) {
+  twiddle_table_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      n, (float2*)tab);
+  return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// the 4-point DFT (W_4 = -i) of a[0..3] in place
+__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2,
+                                     float2& a3) {
+  const float2 s02 = make_float2(a0.x + a2.x, a0.y + a2.y);
+  const float2 d02 = make_float2(a0.x - a2.x, a0.y - a2.y);
+  const float2 s13 = make_float2(a1.x + a3.x, a1.y + a3.y);
+  const float2 d13 = make_float2(a1.x - a3.x, a1.y - a3.y);
+  a0 = make_float2(s02.x + s13.x, s02.y + s13.y);
+  a2 = make_float2(s02.x - s13.x, s02.y - s13.y);
+  a1 = make_float2(d02.x + d13.y, d02.y - d13.x);  // d02 - i d13
+  a3 = make_float2(d02.x - d13.y, d02.y + d13.x);  // d02 + i d13
+}
+
+// x[h], h < 16 -> x[r] = sum_h x[h] W_16^{r h}: h = 4 h1 + h2, r = r1 + 4 r2
+__device__ __forceinline__ void dft16(float2 x[WD_ROWS]) {
+  // W_16^k, k = r1 * h2 in 0..9 (float of the double values)
+  const float2 w16[10] = {
+      {1.0f, 0.0f},
+      {0.92387953251128674f, -0.38268343236508977f},
+      {0.70710678118654752f, -0.70710678118654752f},
+      {0.38268343236508977f, -0.92387953251128674f},
+      {0.0f, -1.0f},
+      {-0.38268343236508977f, -0.92387953251128674f},
+      {-0.70710678118654752f, -0.70710678118654752f},
+      {-0.92387953251128674f, -0.38268343236508977f},
+      {-1.0f, 0.0f},
+      {-0.92387953251128674f, 0.38268343236508977f}};
+#pragma unroll
+  for (int h2 = 0; h2 < 4; ++h2) dft4(x[h2], x[4 + h2], x[8 + h2], x[12 + h2]);
+  // now x[4 r1 + h2] = Y[h2][r1]; turn by W_16^{r1 h2}
+#pragma unroll
+  for (int r1 = 1; r1 < 4; ++r1)
+#pragma unroll
+    for (int h2 = 1; h2 < 4; ++h2)
+      x[4 * r1 + h2] = cmul(x[4 * r1 + h2], w16[r1 * h2]);
+#pragma unroll
+  for (int r1 = 0; r1 < 4; ++r1)
+    dft4(x[4 * r1], x[4 * r1 + 1], x[4 * r1 + 2], x[4 * r1 + 3]);
+  // x[4 r1 + r2] = A[r1 + 4 r2]
+}
+
+// acc += u W_8^o, o = 0..7 known at compile time after unrolling: the
+// quarter turns exactly, the odd eighths with one rounded sqrt(1/2)
+__device__ __forceinline__ void acc_root8(float2& acc, float2 u, int o) {
+  const float h = 0.70710678118654752f;
+  switch (o & 7) {
+    case 0: acc.x += u.x; acc.y += u.y; break;
+    case 1: acc.x = fmaf(h, u.x + u.y, acc.x); acc.y = fmaf(h, u.y - u.x, acc.y); break;
+    case 2: acc.x += u.y; acc.y -= u.x; break;
+    case 3: acc.x = fmaf(h, u.y - u.x, acc.x); acc.y = fmaf(-h, u.x + u.y, acc.y); break;
+    case 4: acc.x -= u.x; acc.y -= u.y; break;
+    case 5: acc.x = fmaf(-h, u.x + u.y, acc.x); acc.y = fmaf(h, u.x - u.y, acc.y); break;
+    case 6: acc.x -= u.y; acc.y += u.x; break;
+    default: acc.x = fmaf(h, u.x - u.y, acc.x); acc.y = fmaf(h, u.x + u.y, acc.y); break;
+  }
+}
+
+// the masked last-max over the lanes xor-reachable from off down to 1:
+// the larger energy, and of equal ones the larger bin (the reference keeps
+// the LAST maximal bin); every lane ends with the result
+__device__ __forceinline__ void last_max(float& best, int& pk, int off) {
+  for (; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int opk = __shfl_xor_sync(0xffffffffu, pk, off);
+    if (ob > best || (ob == best && opk > pk)) {
+      best = ob;
+      pk = opk;
+    }
+  }
+}
+
+// one level of the lane reduction of v[0 .. 2H-1]: the lanes with bit OFF
+// set keep the upper half, the others the lower, each adding its partner's
+template <int H, int OFF, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool up = (lane & OFF) != 0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float lo = v[j], hi = v[j + H];
+    v[j] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, OFF);
+  }
+}
+
+// MC > 0: the kernel for n = 512 MC (the narrowband path's n), whose
+// column loop has a compile-time count; MC = 0: any n the plan takes
+template <int MC>
+__global__ void __launch_bounds__(WD_THREADS, 1)
+    windowed_search_kernel(const int32_t* __restrict__ packed,
+                           long long row_stride,
+                           const int32_t* __restrict__ first1v,
+                           const int32_t* __restrict__ wlenv, int n, int K,
+                           int flip, float samprate, float binsize,
+                           const float2* __restrict__ tab,
+                           float2* __restrict__ spec, float* __restrict__ freq,
+                           float* __restrict__ cyc,
+                           long long* __restrict__ peak) {
+  extern __shared__ __align__(16) unsigned char wd_smem[];
+  const int C = n >> 4;       // columns
+  const int N32 = n >> 5;     // entries of the broadcast table
+  float2* A = (float2*)wd_smem;             // [16][C]
+  int32_t* xs = (int32_t*)(A + n);          // [n] the staged row
+  float2* tw32 = (float2*)(xs + n);         // [N32] W_n^{32 j}
+  float2* tlo = tw32 + N32;                 // [32] W_n^j, j < 32
+  float2* X = tlo + 32;                     // [K] bins, then the mbarrier
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int32_t* row = packed + (size_t)b * row_stride;
+  const int first1 = first1v[b];  // loads in flight beside the row's
+  const int wlen = wlenv == nullptr ? 0 : wlenv[b];
+
+  // 1. stage the row: one bulk copy (TMA) completing on an mbarrier when
+  //    the row is 16-byte aligned, else 4-byte cp.async copies; the
+  //    twiddles W_n^{32 j} and W_n^j, j < 32, by cp.async beside it
+  const unsigned xs_s = (unsigned)__cvta_generic_to_shared(xs);
+  const unsigned mb_s = (unsigned)__cvta_generic_to_shared(X + K);
+  const bool bulk = (((size_t)row) & 15) == 0;
+  if (bulk && tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mb_s));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb_s),
+        "r"(4 * n)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(xs_s),
+        "l"(row), "r"(4 * n), "r"(mb_s)
+        : "memory");
+  }
+  if (!bulk) {
+    for (int i = tid; i < n; i += WD_THREADS)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       xs_s + 4u * i),
+                   "l"(row + i));
+  }
+  const unsigned tw_s = (unsigned)__cvta_generic_to_shared(tw32);
+  for (int j = tid; j < N32 + 32; j += WD_THREADS)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     tw_s + 8u * j),
+                 "l"(tab + (j < N32 ? 32 * j : j - N32)));
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (bulk) {
+    __syncthreads();  // the mbarrier is initialized; its copy in flight
+    // each thread waits for the row's bytes (the twiddles are waited for
+    // before the next barrier)
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "WD_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
+        "@P1 bra WD_DONE;\n"
+        "bra WD_WAIT;\n"
+        "WD_DONE:\n"
+        "}\n" ::"r"(mb_s)
+        : "memory");
+  } else {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  // 2. the column DFTs
+  for (int c = tid; c < C; c += WD_THREADS) {
+    float2 x[WD_ROWS];
+#pragma unroll
+    for (int h = 0; h < WD_ROWS; ++h) {
+      float xr, xi;
+      unpack_iq(xs[h * C + c], flip, xr, xi);
+      x[h] = make_float2(xr, xi);
+    }
+    dft16(x);
+#pragma unroll
+    for (int r1 = 0; r1 < 4; ++r1)
+#pragma unroll
+      for (int r2 = 0; r2 < 4; ++r2) A[(r1 + 4 * r2) * C + c] = x[4 * r1 + r2];
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // the twiddles
+  __syncthreads();
+
+  // 3. the K bins by residue class: the bins k = rho + 16 t share the row
+  //    A[(first1 + rho) mod 16]; warp w takes the classes rho = w + 8 c,
+  //    c < WD_NCLS, WD_NB bins of each at a time.  Phases are exact
+  //    integers below their period, advanced by a compare and subtract.
+  const int M = C >> 5, tail = C & 31;
+  const int dq16 = 16 % N32, dph16 = (16 * lane) % n;
+  constexpr int STEP = 16 * WD_NB;  // bins from one batch of a class to the next
+  const int dqs = STEP % N32, dphs = (STEP * lane) % n;
+  int rowc[WD_NCLS], qc[WD_NCLS], phc[WD_NCLS];  // per class: A row, f, f lane
+#pragma unroll
+  for (int c = 0; c < WD_NCLS; ++c) {
+    int fm = first1 % n;
+    if (fm < 0) fm += n;
+    fm += warp + WD_WARPS * c;  // < n + 16 <= 2n
+    if (fm >= n) fm -= n;
+    rowc[c] = (fm & (WD_ROWS - 1)) * C + lane;
+    qc[c] = fm % N32;
+    phc[c] = (int)(((unsigned)fm * (unsigned)lane) % (unsigned)n);
+  }
+  float* Xf = (float*)X;
+  float wbest = -INFINITY;  // the warp's masked last-max so far
+  int wpk = 0;
+  constexpr int NB = WD_NCLS * WD_NB;  // bins of a batch: i = WD_NB c + t
+  for (int t0 = 0; 16 * t0 + warp < K; t0 += WD_NB) {
+    int q[NB], qm[NB];  // bin i: k = warp + 8 c + 16 (t0 + t)
+    float2 acc[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int t = i % WD_NB;
+      q[i] = t == 0 ? qc[i / WD_NB] : q[i - 1] + dq16;
+      if (q[i] >= N32) q[i] -= N32;
+      acc[i] = make_float2(0.0f, 0.0f);
+    }
+    if constexpr (MC > 0) {
+      // n = 512 MC: W_{n/32}^{(f + 16 t) m} = W_{n/32}^{f m} W_MC^{t m}, the
+      // second factor an eighth root of unity fixed at compile time, so a
+      // column step costs one table load and one complex product for a
+      // class's four bins
+      int qm0[WD_NCLS];  // (f m) mod N32
+#pragma unroll
+      for (int c = 0; c < WD_NCLS; ++c) qm0[c] = 0;
+#pragma unroll
+      for (int m = 0; m < MC; ++m) {
+#pragma unroll
+        for (int c = 0; c < WD_NCLS; ++c) {
+          const float2 u = cmul(A[rowc[c] + 32 * m], tw32[qm0[c]]);
+          qm0[c] = (qm0[c] + q[WD_NB * c]) & (16 * MC - 1);
+#pragma unroll
+          for (int t = 0; t < WD_NB; ++t)
+            acc_root8(acc[WD_NB * c + t], u, ((t * m) % MC) * (8 / MC));
+        }
+      }
+    } else {
+      // software-pipelined: step m + 1's loads go out before step m's sums
+      float2 a[WD_NCLS], w[NB];
+#pragma unroll
+      for (int c = 0; c < WD_NCLS; ++c) a[c] = A[rowc[c]];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        w[i] = tw32[0];
+        qm[i] = q[i];  // (f (m + 1)) mod N32
+      }
+#pragma unroll 1
+      for (int m = 0; m < M; ++m) {
+        const int mn = m + 1 < M ? m + 1 : m;
+        float2 an[WD_NCLS], wn[NB];
+#pragma unroll
+        for (int c = 0; c < WD_NCLS; ++c) an[c] = A[rowc[c] + 32 * mn];
+#pragma unroll
+        for (int i = 0; i < NB; ++i) wn[i] = tw32[qm[i]];
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const float2 ai = a[i / WD_NB];
+          acc[i].x = fmaf(ai.x, w[i].x, fmaf(-ai.y, w[i].y, acc[i].x));
+          acc[i].y = fmaf(ai.x, w[i].y, fmaf(ai.y, w[i].x, acc[i].y));
+          const int nq = qm[i] + q[i];
+          qm[i] = nq >= N32 ? nq - N32 : nq;
+          w[i] = wn[i];
+        }
+#pragma unroll
+        for (int c = 0; c < WD_NCLS; ++c) a[c] = an[c];
+      }
+      if (lane < tail) {  // the ragged last columns (32 does not divide C)
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const float2 at = A[rowc[i / WD_NB] + 32 * M];
+          int qt = qm[i] - q[i];  // (f M) mod N32: one step back
+          if (qt < 0) qt += N32;
+          const float2 wt = tw32[qt];
+          acc[i].x += at.x * wt.x - at.y * wt.y;
+          acc[i].y += at.x * wt.y + at.y * wt.x;
+        }
+      }
+    }
+    // turn by W_n^{f lane} = W_n^{32 (p >> 5)} W_n^{p & 31}, p = f lane mod n
+    float v[2 * NB];
+#pragma unroll
+    for (int c = 0; c < WD_NCLS; ++c) {
+      int p = phc[c];
+#pragma unroll
+      for (int t = 0; t < WD_NB; ++t) {
+        const float2 r =
+            cmul(acc[WD_NB * c + t], cmul(tw32[p >> 5], tlo[p & 31]));
+        v[2 * (WD_NB * c + t)] = r.x;
+        v[2 * (WD_NB * c + t) + 1] = r.y;
+        p += dph16;
+        if (p >= n) p -= n;
+      }
+    }
+    // reduce the 2 NB sums over the lanes in halves (2 NB shuffles), after
+    // which lane SPAN j holds sum j (bin j/2, real or imaginary part)
+    constexpr int SPAN = 32 / (2 * NB);
+    halve<NB, 16>(v, lane);
+    halve<NB / 2, 8>(v, lane);
+    halve<NB / 4, 4>(v, lane);
+    if constexpr (NB >= 8) halve<NB / 8, 2>(v, lane);
+    for (int off = SPAN / 2; off > 0; off >>= 1)
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    const int i = lane / (2 * SPAN);
+    const int k = warp + WD_WARPS * (i / WD_NB) + 16 * (t0 + i % WD_NB);
+    if (lane % SPAN == 0 && k < K) Xf[2 * k + (lane / SPAN) % 2] = v[0];
+    // the peak pass's masked energies (lane 2 SPAN i: bin i's real part,
+    // SPAN lanes up its imaginary part), rounded as the plain version
+    // rounds them
+    const float im = __shfl_down_sync(0xffffffffu, v[0], SPAN);
+    if (lane % (2 * SPAN) == 0 && k < K) {
+      const float e = __fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(im, im));
+      const float mk = (k >= 1 && k < wlen + 1) ? e : -1.0f;
+      if (mk >= wbest) {  // ">=": the LAST maximal bin
+        wbest = mk;
+        wpk = k;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < WD_NCLS; ++c) {
+      qc[c] += dqs;
+      if (qc[c] >= N32) qc[c] -= N32;
+      phc[c] += dphs;
+      if (phc[c] >= n) phc[c] -= n;
+    }
+  }
+  // each warp's candidate for the peak: the last maximal of its bins
+  float* cand = (float*)(X + K + 1);  // [WD_WARPS] energies, then bins
+  last_max(wbest, wpk, 16);
+  if (lane == 0) {
+    cand[warp] = wbest;
+    ((int*)cand)[WD_WARPS + warp] = wpk;
+  }
+  __syncthreads();
+  if (warp > 0)  // warp 0 goes straight on to the peak
+    for (int k = tid - 32; k < K; k += WD_THREADS - 32)
+      spec[(size_t)b * K + k] = X[k];
+  if (wlenv == nullptr || warp != 0) return;
+
+  // 4. masked last-max peak over the warps' candidates + Quinn (warp 0)
+  float best = lane < WD_WARPS ? cand[lane] : -INFINITY;
+  int pk = lane < WD_WARPS ? ((int*)cand)[WD_WARPS + lane] : 0;
+  last_max(best, pk, WD_WARPS / 2);
+  if (lane == 0) {
+    const float fr = quinn_freq(X[pk], X[min(pk + 1, K - 1)], X[max(pk - 1, 0)],
+                                first1 + pk, samprate, binsize);
+    freq[b] = fr;
+    cyc[b] = __fdiv_rn(fr, samprate);
+    peak[b] = (long long)first1 + pk;
+  }
+}
+
+// K8.  packed (B rows of n words, row stride row_stride), first1 (B,) int32
+// window start bins, tab (n,) float2 from twiddle_table_launch -> spec
+// (B, K) float2, bins first1 .. first1+K-1.  With wlen (B,) int32 non-NULL
+// the peak pass follows in the same launch: freq (B,) f32 Hz, cyc (B,) f32
+// cycles/sample and peak (B,) int64 bins.  smem: the bytes the wrapper's
+// plan gives (carrier_cuda.windowed_search_plan); the shared-memory limit
+// is raised once per device.
+template <int MC>
+static cudaError_t windowed_search_go(const int32_t* packed,
+                                      long long row_stride,
+                                      const int32_t* first1,
+                                      const int32_t* wlen, int B, int n, int K,
+                                      int flip, float samprate, float binsize,
+                                      const float* tab, int smem, float* spec,
+                                      float* freq, float* cyc,
+                                      long long* peak, cudaStream_t stream) {
+  static unsigned configured = 0u;  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || !(configured & (1u << dev))) {
+    err = cudaFuncSetAttribute(windowed_search_kernel<MC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               232448);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) configured |= 1u << dev;
+  }
+  windowed_search_kernel<MC><<<B, WD_THREADS, smem, stream>>>(
+      packed, row_stride, first1, wlen, n, K, flip, samprate, binsize,
+      (const float2*)tab, (float2*)spec, freq, cyc, peak);
+  return cudaGetLastError();
+}
+
+extern "C" int windowed_dft_launch(const int32_t* packed, long long row_stride,
+                                   const int32_t* first1, const int32_t* wlen,
+                                   int B, int n, int K, int flip,
+                                   float samprate, float binsize,
+                                   const float* tab, int smem, float* spec,
+                                   float* freq, float* cyc, long long* peak,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nhi = n >> 8;
-  size_t smem = (size_t)(nhi + (DFT_THREADS / 32) * DFT_KT) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((K + DFT_KT - 1) / DFT_KT, B);
-  dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, 2, n, K,
-                                             flip, nullptr, (float2*)spec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || stat == nullptr) return (int)err;
-  peak_kernel<<<(B + 127) / 128, 128, 0, s>>>((const float2*)spec, iw, B, K,
-                                              samprate, binsize, stat, cyc);
-  return (int)cudaGetLastError();
+#define WD_GO(MC)                                                          \
+  return (int)windowed_search_go<MC>(packed, row_stride, first1, wlen, B, n, \
+                                     K, flip, samprate, binsize, tab, smem,  \
+                                     spec, freq, cyc, peak, s);
+  switch (n) {
+    case 512: WD_GO(1)
+    case 1024: WD_GO(2)
+    case 2048: WD_GO(4)
+    case 4096: WD_GO(8)
+    default: WD_GO(0)
+  }
+#undef WD_GO
 }
 
 // ---- K9: the whole pm block loop in one launch --------------------------

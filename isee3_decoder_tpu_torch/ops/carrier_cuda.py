@@ -245,39 +245,93 @@ def windowed_search_raw_plain(
     return S, freq, peak
 
 
+WD_THREADS = 256  # threads of a K8 block (csrc/carrier.cu)
+WD_ROWS = 16  # K8's column DFT length: n = WD_ROWS * columns
+WD_NB = 4  # bins of each of its residue classes a K8 warp sums at once
+
+
+@functools.lru_cache(maxsize=64)
+def windowed_search_plan(n: int, K: int) -> dict:
+    """K8's launch plan for rows of n samples and K bins (csrc/carrier.cu
+    ``windowed_search_kernel``): one block of WD_THREADS threads per
+    channel; sample i = columns·h + c is row h < WD_ROWS of column c, a
+    thread takes the columns c ≡ tid (mod WD_THREADS); bin k goes to warp
+    k mod 8, which sums the residue classes k mod 16 = w and w + 8, WD_NB
+    bins of each at a time, its lane ℓ the columns c = 32m + ℓ.  Shared memory: the column DFTs (8n
+    bytes), the staged row (4n), the twiddles W_n^{32j} (n/4) and W_n^j,
+    j < 32 (256), the K bins (8K), the row copy's mbarrier (8) and the
+    warps' peak candidates (128).  The whole row is staged at once, so K8
+    takes the n whose plan fits one block's shared memory (n ≤ 18,688 at
+    K = 53; the narrowband path's n is a power of two below 8192);
+    anything else raises."""
+    if n <= 0 or n % 256 != 0:
+        raise ValueError(f"n = {n} must be a positive multiple of 256")
+    if not 1 <= K <= n:
+        raise ValueError(f"K = {K} window bins out of range 1..{n}")
+    smem = 12 * n + n // 4 + 256 + 8 * K + 8 + 128
+    if smem > _SMEM_MAX:
+        raise ValueError(f"n = {n}, K = {K}: K8 stages the whole row and "
+                         f"needs {smem} bytes of shared memory, over "
+                         f"{_SMEM_MAX}")
+    return {"threads": WD_THREADS, "warps": WD_THREADS // 32,
+            "rows": WD_ROWS, "columns": n // WD_ROWS, "batch": WD_NB,
+            "smem": smem}
+
+
+@functools.lru_cache(maxsize=16)
+def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
+    """(n, 2) float32 W_n^j = exp(-2πij/n), the double sincospi rounded to
+    float32, built on the card at first use (csrc/carrier.cu)."""
+    tab = torch.empty((n, 2), dtype=torch.float32, device=device)
+    err = _kernels.lib().twiddle_table_launch(n, tab.data_ptr(),
+                                              _kernels.stream_ptr(device))
+    _kernels.check(err, "twiddle_table_launch")
+    return tab
+
+
+def _as_i32(x: torch.Tensor, dev) -> torch.Tensor:
+    if x.dtype == torch.int32 and x.device == dev and x.is_contiguous():
+        return x
+    return x.to(device=dev, dtype=torch.int32).contiguous()
+
+
 def _windowed_dft_launch(packed, first1, wlen, K, flip, samprate=0.0,
                          binsize=0.0):
-    """Launch K8 (and, with ``wlen``, the peak pass) on a CUDA tensor →
-    (spec (B, K, 2) float32, stat (B, 4) float32 or None)."""
+    """Launch K8 (with ``wlen``, its peak pass too) on a CUDA tensor →
+    (spec (B, K, 2) float32, freq (B,) float32, peak (B,) int64; the last
+    two None without ``wlen``), all views of one buffer."""
     _check_packed(packed, None)
     B, n = packed.shape
     peak = wlen is not None
-    lo = 3 if peak else 1  # the peak reads the bins around it
-    if not lo <= K <= n:
-        raise ValueError(f"K = {K} window bins out of range {lo}..{n}")
-    if ((n // 256) + 128) * 8 > _SMEM_MAX:
-        raise ValueError(f"n = {n}: twiddle table exceeds shared memory")
+    if peak and K < 3:  # the peak reads the bins around it
+        raise ValueError(f"K = {K} window bins out of range 3..{n}")
+    plan = windowed_search_plan(n, K)
+    if first1.shape != (B,):
+        raise ValueError("first1 must be (B,)")
+    if peak and wlen.shape != (B,):
+        raise ValueError("wlen must be (B,)")
     dev = packed.device
-    wlen = wlen if peak else first1
-    if first1.shape != (B,) or wlen.shape != (B,):
-        raise ValueError("first1 and wlen must be (B,)")
-    iw = torch.stack([first1, wlen], dim=1).to(device=dev,
-                                               dtype=torch.int32).contiguous()
-    spec = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
-    stat = cyc = None
-    if peak:
-        stat = torch.empty((B, 4), dtype=torch.float32, device=dev)
-        cyc = torch.empty((B,), dtype=torch.float32, device=dev)
+    first1 = _as_i32(first1, dev)
+    wlen = _as_i32(wlen, dev) if peak else None
+    # spec (2BK floats), freq, cyc (B each), peak (B int64)
+    buf = torch.empty(2 * B * K + 4 * B, dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
     err = _kernels.lib().windowed_dft_launch(
-        packed.data_ptr(), packed.stride(0), iw.data_ptr(), B, n, K, int(flip),
+        packed.data_ptr(), packed.stride(0), first1.data_ptr(),
+        wlen.data_ptr() if peak else None, B, n, K, int(flip),
         float(np.float32(samprate)), float(np.float32(binsize)),
-        spec.data_ptr(), None if stat is None else stat.data_ptr(),
-        None if cyc is None else cyc.data_ptr(), _kernels.stream_ptr(dev),
+        twiddle_table(n, dev).data_ptr(), plan["smem"], ptr,
+        ptr + 8 * B * K, ptr + 8 * B * K + 4 * B, ptr + 8 * B * K + 8 * B,
+        _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "windowed_dft_launch")
     _kernels.count_launch("windowed_dft")
     _kernels.note_backend("search", "cuda")
-    return spec, stat
+    spec = buf[: 2 * B * K].view(B, K, 2)
+    if not peak:
+        return spec, None, None
+    nb = 2 * B * K
+    return spec, buf[nb: nb + B], buf[nb + 2 * B:].view(torch.int64)
 
 
 def windowed_dft_raw(packed: torch.Tensor, first1: torch.Tensor, K: int,
@@ -304,10 +358,9 @@ def windowed_search_raw(
         _kernels.note_backend("search", "torch")
         return windowed_search_raw_plain(packed, first1, wlen, K, samprate,
                                          binsize, flip)
-    spec, stat = _windowed_dft_launch(packed, first1, wlen, K, flip, samprate,
-                                      binsize)
-    return (torch.view_as_complex(spec), stat[:, 2],
-            stat[:, 3].to(torch.int64))
+    spec, freq, peak = _windowed_dft_launch(packed, first1, wlen, K, flip,
+                                            samprate, binsize)
+    return torch.view_as_complex(spec), freq, peak
 
 
 def _scan_constants(samprate, binsize, search_width, cn0_threshold):

@@ -202,6 +202,45 @@ def cycle_b_plain(metrics, syms, code=DEFAULT_CODE, nsteps=None, dec=None):
     return metrics, dec, m.amin(dim=2)
 
 
+A_LT = 8  # columns li of a K5 tile per (row, j): 16 bytes of int16
+A_TILE = 32 * A_LT  # columns of a K5 tile: g*4096 + j*128 + l0 + li
+A_CLUSTER = 4  # K5 tiles of a cluster: li 32u .. 32u+31, 64-byte runs
+_SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+
+
+@functools.lru_cache(maxsize=16)
+def cycle_a_plan(code: CodeSpec) -> dict:
+    """K5's launch plan (csrc/viterbi.cu ``viterbi_a_kernel``): one block
+    per (frame, tile); tile ``x`` holds the columns g*4096 + j*128 + l0 +
+    li (g = x >> 4, l0 = 8·(x & 15), j < 32, li < 8) of every row, whose
+    decisions are words g*128 + l0 + li of each row.  Tiles x .. x+3 (x a
+    multiple of 4) form a cluster that moves the metrics in 64-byte runs,
+    li 32u .. 32u+31 of a (row, j).  Shared memory: the tile as
+    int16 (512 bytes a row), three steps of decision words (32 bytes a
+    row each) and the branch metrics of up to 8 steps."""
+    _, rowb, colb = _geometry(code)
+    nrows = 1 << rowb
+    smem = nrows * 2 * A_TILE + 3 * nrows * 4 * A_LT + 4 * 4 * 8
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{code.name}: K5 tile needs {smem} bytes of shared "
+                         "memory")
+    return {"tiles": (1 << colb) // A_TILE, "cluster": A_CLUSTER,
+            "threads": min(512, max(128, 16 * nrows)), "smem": smem}
+
+
+def cycle_a_tile(code: CodeSpec, x: int) -> tuple[np.ndarray, np.ndarray]:
+    """Tile ``x`` of K5's plan → (the flat metric positions it holds, the
+    decision word indices of a plane it writes), both int64."""
+    _, rowb, colb = _geometry(code)
+    g, l0 = x >> 4, (x & 15) * A_LT
+    rows = np.arange(1 << rowb, dtype=np.int64)[:, None]
+    cols = (g * 4096 + 128 * np.arange(32)[:, None]
+            + l0 + np.arange(A_LT)[None, :]).reshape(-1)
+    words = g * 128 + l0 + np.arange(A_LT)
+    return ((rows << colb) | cols).reshape(-1), \
+        (rows * ((1 << colb) // 32) + words).reshape(-1)
+
+
 def _check_launch(metrics, syms, code, nsteps, lo, hi, name):
     if (metrics.dtype != torch.int16 or metrics.ndim != 2
             or metrics.shape[1] != code.nstates or not metrics.is_contiguous()):
@@ -236,11 +275,18 @@ def cycle_a(metrics, syms, code=DEFAULT_CODE, nsteps=None, base=None, dec=None):
             or base.device != dev or not base.is_contiguous()):
         raise ValueError("cycle_a: base must be contiguous (B,) int32")
     dec = _dec_out(dec, B, nsteps, n, dev)
+    # the kernel moves metrics and decision words as 16-byte vectors
+    if (metrics.data_ptr() % 16 or dec.data_ptr() % 16
+            or dec.stride(0) % 4 or dec.stride(1) % 4):
+        raise ValueError("cycle_a: metrics and dec must be 16-byte aligned, "
+                         "dec's strides multiples of 4 words")
+    plan = cycle_a_plan(code)
     q1, q2 = _branch_masks(code)
     err = _kernels.lib().viterbi_a_launch(
         metrics.data_ptr(), syms.data_ptr(), base.data_ptr(), dec.data_ptr(),
         dec.stride(0), dec.stride(1), B, rowb, colb, nsteps, q1, q2,
-        code.g1flip, code.g2flip, _kernels.stream_ptr(dev),
+        code.g1flip, code.g2flip, plan["tiles"], plan["threads"],
+        plan["smem"], _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "viterbi_a_launch")
     _kernels.count_launch("viterbi_a")

@@ -1,0 +1,169 @@
+"""Time kernels K8 and K5 of one checkout of the port, for comparing two
+trees in turns on one card.
+
+    python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
+
+imports ``isee3_decoder_tpu_torch`` from the checkout at DIR (this file
+imports nothing of the package before that, so it can time an older
+tree), builds its kernels, and prints one JSON line:
+
+- K8 with its peak pass (``carrier_cuda.windowed_search_raw``) at the
+  narrowband path's shape, 128 x 4096, K = 53: CUDA-event ms per call
+  over 50 calls, and device ms per call and kernels per call under
+  torch.profiler; ``torch.fft.fft`` over all 4096 bins of the same block
+  the same two ways;
+- K5 (``viterbi_cuda.cycle_a``) over a whole K = 24 row phase at B = 10,
+  the threshold block's batch: event ms and device ms per launch.
+
+Each kernel's result is held against its plain version first (K8: peak
+bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
+K5: bit for bit).  Needs a CUDA card; the card's nvidia-smi name and power
+limit are in the line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(torch, fn, reps: int) -> tuple[float, float, list[str]]:
+    """(device ms per call summed over every kernel, kernels per call,
+    the kernels' names) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sum(e.time_range.end - e.time_range.start for e in ev)
+    return spans / reps / 1e3, len(ev) / reps, sorted({e.name for e in ev})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", required=True, help="checkout to import")
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_turns: no CUDA device", file=sys.stderr)
+        return 1
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda
+    from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
+    from isee3_decoder_tpu_torch.utils.devicesignal import (
+        random_frames,
+        synthesize_iq_device,
+        to_raw_int16,
+    )
+
+    dev = torch.device("cuda", 0)
+    _kernels.lib()
+    out = {"label": args.label or args.tree, "card": _card(),
+           "package": str(pathlib.Path(_kernels.__file__).parent)}
+
+    # ---- K8 at the narrowband path's shape
+    B = 128
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=8.0, search_width=200.0)
+    n, K = cfg.fftsize, carrier._window_bins(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    frames = torch.as_tensor(random_frames(np.random.default_rng(8), B),
+                             device=dev)[:, None, :]
+    freqs = torch.as_tensor(4000.0 + 37.0 * np.arange(B), dtype=torch.float32,
+                            device=dev)
+    iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
+                              noise_std=2500.0)
+    raw = to_raw_int16(iq)
+    packed = carrier.pack_raw(raw)
+    carry = carrier.PMCarry(search_center=freqs,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    search = (packed, first - 1, last - first, K, cfg.samprate,
+              cfg.actual_binsize)
+    s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*search)
+    s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*search)
+    rel = float((s_k - s_p).abs().max()) / float(s_p.abs().max())
+    ok8 = (bool(torch.equal(pk_k, pk_p)) and rel <= 1e-5
+           and float((f_k - f_p).abs().max()) <= 5e-3)
+    x = carrier.iq_from_interleaved(raw)
+
+    def k8():
+        carrier_cuda.windowed_search_raw(*search)
+
+    def fft():
+        torch.fft.fft(x, dim=-1)
+
+    # event times first: a profiler session slows every later launch
+    ms, fft_ms = _event_ms(torch, k8, 50), _event_ms(torch, fft, 50)
+    dms, per_call, names = _device_ms(torch, k8, 50)
+    fdms, fper_call, _ = _device_ms(torch, fft, 50)
+    out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8, "rel_err": rel,
+                 "ms": ms, "device_ms": dms, "kernels_per_call": per_call,
+                 "kernels": names, "fft_ms": fft_ms, "fft_device_ms": fdms,
+                 "fft_kernels_per_call": fper_call}
+
+    # ---- K5 over a whole K = 24 row phase at the threshold block's batch
+    B = 10
+    w, rowb, _ = vc._geometry(code)
+    gen.manual_seed(25)
+    m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    syms = torch.randint(0, 256, (B, 2 * rowb), generator=gen, device=dev,
+                         dtype=torch.int32)
+    base = torch.randint(1, 600, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    mk, mp = m0.clone(), m0.clone()
+    _, dk = vc.cycle_a(mk, syms, code, rowb, base)
+    _, dp = vc.cycle_a_plain(mp, syms, code, rowb, base)
+    ok5 = bool(torch.equal(mk, mp) and torch.equal(dk, dp))
+    da = torch.empty((B, rowb, code.nstates // 32), dtype=torch.int32,
+                     device=dev)
+
+    def k5():
+        vc.cycle_a(mk, syms, code, rowb, base, da)
+
+    ms = _event_ms(torch, k5, 20)
+    dms, per_call, names = _device_ms(torch, k5, 20)
+    out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5,
+                 "ms": ms, "device_ms": dms, "kernels_per_call": per_call,
+                 "kernels": names}
+    print(json.dumps(out), flush=True)
+    return 0 if ok8 and ok5 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,6 +34,7 @@ K7 = CodeSpec("TESTK7", 0o171, 0o133, 7, 0, 0)
 K9F = CodeSpec("TESTK9F", 0o713, 0o715, 9, 0, 1)
 K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
 K18 = CodeSpec("TESTK18", 0o654321, 0o735271, 18, 0, 1)
+K14 = CodeSpec("TESTK14", 0o21645, 0o35661, 14, 0, 1)
 
 
 @pytest.fixture
@@ -161,6 +162,55 @@ def test_k5_k6_one_cycle_exact(dev, code):
     _, dp, np_ = viterbi_cuda.cycle_b_plain(mp, sb, code, w - rowb)
     torch.cuda.synchronize()
     assert torch.equal(mk, mp) and torch.equal(dk, dp) and torch.equal(nk, np_)
+
+
+@pytest.mark.parametrize("data", ["random", "ties"])
+@pytest.mark.parametrize("B", [1, 3, 10])
+@pytest.mark.parametrize("code,nsteps", [(K14, 1), (K15, 1), (K18, 2),
+                                         (K18, 1), (DEFAULT_CODE, 8),
+                                         (DEFAULT_CODE, 5), (DEFAULT_CODE, 1)],
+                         ids=["K14", "K15", "K18", "K18-1", "MCQLI24",
+                              "MCQLI24-5", "MCQLI24-1"])
+def test_k5_exact(dev, code, nsteps, B, data):
+    """K5 alone against cycle_a_plain, metrics and decision words bit for
+    bit, in whole and partial row phases (nsteps < ROWB), on random
+    metrics and on metrics with many equal values and symbols 127/128,
+    where the ties (a0 kept at lo, a2 at hi) decide."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(code.k * 100 + nsteps * 10 + B)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if data == "random":
+        m0 = ri(0, 12000, (B, code.nstates)).to(torch.int16)
+        syms = ri(0, 256, (B, 2 * nsteps))
+    else:
+        m0 = (ri(0, 3, (B, code.nstates)) * 255).to(torch.int16)
+        syms = ri(127, 129, (B, 2 * nsteps))
+    base = ri(0, 600, (B,))
+    mk, mp = m0.clone(), m0.clone()
+    # the decision planes land in a strided view, as the tape gives them
+    tape = torch.zeros((nsteps + 1, B, code.nstates // 32), dtype=torch.int32,
+                       device=dev)
+    dk = tape[1:].transpose(0, 1)
+    na = _kernels.LAUNCHES["viterbi_a"]
+    viterbi_cuda.cycle_a(mk, syms, code, nsteps, base, dk)
+    _, dp = viterbi_cuda.cycle_a_plain(mp, syms, code, nsteps, base)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_a"] == na + 1
+    assert torch.equal(mk, mp)
+    assert torch.equal(dk, dp)
+    assert not bool(tape[0].any())
+
+
+def test_k5_refuses_unaligned_buffers(dev):
+    n = K15.nstates
+    flat = torch.zeros(n + 4, dtype=torch.int16, device=dev)
+    syms = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        viterbi_cuda.cycle_a(flat[4:].view(1, n), syms, K15, 1)
 
 
 def test_decode_frame_fused_kernels_exact(dev):
@@ -444,6 +494,78 @@ def test_k8_matches_plain(dev, B, binsize, flip):
     assert torch.equal(s_k, got)
     assert torch.equal(pk_s, pk_p)
     torch.testing.assert_close(f_s, f_p, atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["iq", "flip"])
+@pytest.mark.parametrize("B", [1, 5, 128])
+@pytest.mark.parametrize("n", [4096, 8192, 12288])
+def test_k8_search_one_launch_matches_plain(dev, n, B, flip):
+    """K8 with its peak pass at n = 4096 (the narrowband path), 8192 and
+    12288 (not a power of two: 24,576 sps at 2 Hz bins) against the plain
+    version: one launch, bins within 1e-5 of the largest bin, equal peak
+    bins, frequency within 5e-3 Hz."""
+    samprate, width = 2.0 * n, 100.0
+    binsize = samprate / n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + B)
+    frames = torch.as_tensor(random_frames(np.random.default_rng(B), B),
+                             device=dev)[:, None, :]
+    # carriers a quarter bin off a bin, spread over 300 Hz .. fs/2 - 300
+    spread = np.linspace(300.0, samprate / 2 - 300.0, B)
+    freqs = torch.as_tensor((np.round(spread / binsize) + 0.25) * binsize,
+                            dtype=torch.float32, device=dev)
+    iq = synthesize_iq_device(frames, freqs, gen, n, samprate=samprate,
+                              symrate=512.0, noise_std=300.0)
+    packed = carrier.pack_raw(to_raw_int16(iq))
+    center = -freqs if flip else freqs
+    first = torch.trunc((center - width) / binsize).to(torch.int32)
+    last = torch.trunc((center + width) / binsize).to(torch.int32)
+    K = int(2 * width / binsize) + 3
+    args = (packed, first - 1, last - first, K, samprate, binsize, flip)
+    n0 = _kernels.LAUNCHES["windowed_dft"]
+    s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["windowed_dft"] == n0 + 1
+    assert _kernels.backend_used["search"] == "cuda"
+    s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*args)
+    assert s_k.shape == (B, K) and s_k.dtype == torch.complex64
+    assert float((s_k - s_p).abs().max()) <= 1e-5 * float(s_p.abs().max())
+    assert pk_k.dtype == torch.int64 and torch.equal(pk_k, pk_p)
+    torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
+
+
+def test_k8_unaligned_rows_match_plain(dev):
+    """Rows that do not start on 16 bytes are staged by 4-byte copies
+    instead of the bulk copy: the same bins as the plain version."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=8.0, search_width=200.0)
+    B, n, K = 3, cfg.fftsize, carrier._window_bins(cfg)
+    raw, freqs = _raw(dev, B, cfg, seed=5)
+    wide = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
+    packed = wide[:, 1:]  # each row starts 4 bytes past a 16-byte boundary
+    packed.copy_(carrier.pack_raw(raw))
+    assert packed.data_ptr() % 16 != 0 and packed.stride(1) == 1
+    carry = carrier.PMCarry(search_center=freqs,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    first1, wlen = first - 1, last - first
+    args = (packed, first1, wlen, K, cfg.samprate, cfg.actual_binsize)
+    s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*args)
+    s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*args)
+    assert float((s_k - s_p).abs().max()) <= 1e-5 * float(s_p.abs().max())
+    assert torch.equal(pk_k, pk_p)
+    torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
+
+
+def test_k8_refuses_rows_it_cannot_stage(dev):
+    """K8 stages a whole row in one block's shared memory: a row too long
+    for it raises, with no fallback to another kernel."""
+    packed = torch.zeros((2, 18944), dtype=torch.int32, device=dev)
+    first1 = torch.zeros(2, dtype=torch.int32, device=dev)
+    n0 = _kernels.LAUNCHES["windowed_dft"]
+    with pytest.raises(ValueError, match="shared memory"):
+        carrier_cuda.windowed_search_raw(packed, first1, first1 + 10, 53,
+                                         37888.0, 2.0)
+    assert _kernels.LAUNCHES["windowed_dft"] == n0
 
 
 def _scan_inputs(dev, B: int, T: int, cfg, seed: int, lost: int | None = None):

@@ -1,0 +1,291 @@
+"""Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``)
+and K8 (csrc/carrier.cu ``windowed_search_kernel``), checked on the CPU:
+the tiles cover every state, sample and bin exactly once, every decision
+word has one writer, and shared memory stays within one block's limit.
+The kernels' index arithmetic is mirrored here in numpy (the radix stages
+of K5 with their split branch parities; the 16 x C split of K8 with its
+integer phase walks) and held against the plain versions, since the
+kernels themselves run only on the card.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from isee3_decoder_tpu_torch.config import CodeSpec
+from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, viterbi_cuda
+from isee3_decoder_tpu_torch.ops.viterbi_inplace import _branch_masks, _rotr
+
+SMEM_MAX = 232_448
+
+
+def _code(k: int) -> CodeSpec:
+    # two k-bit polynomials with the top and bottom taps set
+    rng = np.random.default_rng(k)
+    p1, p2 = (int(v) | 1 | (1 << (k - 1)) for v in rng.integers(0, 1 << k, 2))
+    return CodeSpec(f"TESTK{k}", p1, p2, k, k % 2, 0)
+
+
+# ---------------------------------------------------------------- K5 plan
+
+@pytest.mark.parametrize("k", range(14, 25))
+def test_k5_tiles_cover_every_state_and_word_once(k):
+    code = _code(k)
+    w, rowb, colb = viterbi_cuda._geometry(code)
+    plan = viterbi_cuda.cycle_a_plan(code)
+    assert plan["smem"] <= SMEM_MAX
+    assert plan["threads"] % 32 == 0 and 128 <= plan["threads"] <= 1024
+    states = np.zeros(1 << w, dtype=np.int64)
+    words = np.zeros((1 << w) // 32, dtype=np.int64)
+    for x in range(plan["tiles"]):
+        pos, wd = viterbi_cuda.cycle_a_tile(code, x)
+        states[pos] += 1
+        words[wd] += 1
+        # the words a tile writes are exactly those its positions' bits
+        # fall in (the decision-word contract of ops/viterbi_inplace.py)
+        contract = np.unique((pos >> 12) * 128 + (pos & 127))
+        assert np.array_equal(contract, np.unique(wd))
+        # 16-byte vectors: 8 contiguous columns per (row, j), 32-byte runs
+        # of words per row
+        assert (pos.reshape(-1, 8) - pos.reshape(-1, 8)[:, :1] == np.arange(8)).all()
+        assert (wd.reshape(-1, 8) % 8 == np.arange(8)).all()
+    assert (states == 1).all()
+    assert (words == 1).all()
+    # a cluster's tiles hold whole 64-byte runs: 32 consecutive int16
+    # columns of each (row, j)
+    assert plan["tiles"] % plan["cluster"] == 0
+    for x0 in range(0, plan["tiles"], plan["cluster"]):
+        pos = np.concatenate([viterbi_cuda.cycle_a_tile(code, x)[0]
+                              for x in range(x0, x0 + plan["cluster"])])
+        runs = np.unique(pos >> 5)
+        assert len(pos) == 32 * len(runs)
+
+
+def _parity(x):
+    x = np.asarray(x, dtype=np.int64)
+    for sh in (16, 8, 4, 2, 1):
+        x = x ^ (x >> sh)
+    return x & 1
+
+
+def _k5_stages(m16, syms, code, nsteps, base):
+    """numpy mirror of viterbi_a_kernel: radix stages of up to three steps
+    on row sets rbase | (x << lowbit), the branch metric read from a
+    4-entry table per step at the XOR of two 2-bit codes (row base and
+    column; the stage's row bits), int16 storage between stages →
+    (metrics int16, decision bits (B, nsteps, n))."""
+    w, rowb, colb = viterbi_cuda._geometry(code)
+    B = m16.shape[0]
+    nrows, ncols = 1 << rowb, 1 << colb
+    q1, q2 = _branch_masks(code)
+    colmask = ncols - 1
+    cols = np.arange(ncols, dtype=np.int64)
+    v = m16.reshape(B, nrows, ncols).astype(np.int64)
+    d = np.zeros((B, nsteps, nrows, ncols), dtype=bool)
+    s = syms.astype(np.int64)
+    for t0 in range(0, nsteps, 3):
+        S = min(3, nsteps - t0)
+        lowbit = rowb - t0 - S
+        if t0 == 0:
+            v = v - base[:, None, None]
+        for rho in range(nrows >> S):
+            rbase = ((rho >> lowbit) << (lowbit + S)) | (rho & ((1 << lowbit) - 1))
+            for u in range(S):
+                t = t0 + u
+                hb = S - 1 - u
+                m1, m2 = _rotr(q1, t, w), _rotr(q2, t, w)
+                # 2-bit codes b0 + 2 b1: row base and column, per column
+                cc = (_parity(rbase & (m1 >> colb)) ^ code.g1flip
+                      ^ _parity(cols & (m1 & colmask))) \
+                    | (_parity(rbase & (m2 >> colb)) ^ code.g2flip
+                       ^ _parity(cols & (m2 & colmask))) << 1
+                s0, s1 = s[:, 2 * t], s[:, 2 * t + 1]
+                table = np.stack([s0 + s1, 255 - s0 + s1, s0 + 255 - s1,
+                                  510 - s0 - s1], axis=1)  # (B, 4)
+                for pi in range(1 << (S - 1)):
+                    xlo = ((pi >> hb) << (hb + 1)) | (pi & ((1 << hb) - 1))
+                    xhi = xlo | (1 << hb)
+                    xcode = _parity((xlo << lowbit) & (m1 >> colb)) \
+                        | _parity((xlo << lowbit) & (m2 >> colb)) << 1
+                    mt = np.take_along_axis(table, np.broadcast_to(
+                        cc ^ xcode, (B, ncols)), axis=1)
+                    mm = 510 - mt
+                    rlo, rhi = rbase | (xlo << lowbit), rbase | (xhi << lowbit)
+                    lo, hi = v[:, rlo], v[:, rhi]
+                    a0, a1, a2, a3 = lo + mt, hi + mm, lo + mm, hi + mt
+                    d[:, t, rlo], d[:, t, rhi] = a0 > a1, a2 > a3
+                    v[:, rlo] = np.where(a0 > a1, a1, a0)
+                    v[:, rhi] = np.where(a2 > a3, a3, a2)
+        v = v.astype(np.int16).astype(np.int64)  # int16 between stages
+    return v.reshape(B, -1).astype(np.int16), d.reshape(B, nsteps, -1)
+
+
+@pytest.mark.parametrize("k,nsteps", [(14, None), (18, None), (18, 1),
+                                      (20, None), (20, 2), (21, 4)])
+def test_k5_stage_arithmetic_matches_plain(k, nsteps):
+    """The kernel's decomposition (stages, row sets, split parities, ties
+    keeping a0 / a2) against cycle_a_plain, bit for bit, with many equal
+    metrics and symbols 127/128 so that ties occur."""
+    code = _code(k)
+    w, rowb, _ = viterbi_cuda._geometry(code)
+    nsteps = rowb if nsteps is None else nsteps
+    rng = np.random.default_rng(k * 10 + nsteps)
+    B = 2
+    m0 = np.concatenate([rng.integers(0, 12000, (1, code.nstates)),
+                         rng.integers(0, 3, (1, code.nstates)) * 255]
+                        ).astype(np.int16)
+    syms = np.concatenate([rng.integers(0, 256, (1, 2 * nsteps)),
+                           rng.integers(127, 129, (1, 2 * nsteps))]
+                          ).astype(np.int32)
+    base = np.array([517, 0], dtype=np.int64)
+    got_m, got_d = _k5_stages(m0, syms, code, nsteps, base)
+    mp = torch.as_tensor(m0.copy())
+    _, dp = viterbi_cuda.cycle_a_plain(mp, torch.as_tensor(syms), code, nsteps,
+                                       torch.as_tensor(base, dtype=torch.int32))
+    assert np.array_equal(got_m, mp.numpy())
+    want = torch.as_tensor(
+        viterbi_cuda._pack_words(torch.as_tensor(got_d.reshape(-1, code.nstates)))
+        .reshape(B, nsteps, -1))
+    assert torch.equal(want, dp)
+
+
+# ---------------------------------------------------------------- K8 plan
+
+# the n the narrowband path gives K8 (a power of two below 8192) and the
+# card tests' 8192 and 12288, each at a few window widths
+K8_SIZES = [(n, K) for n in (512, 1024, 2048, 4096, 8192, 12288)
+            for K in (3, 53, 203, min(n, 2048))]
+
+
+@pytest.mark.parametrize("n,K", K8_SIZES)
+def test_k8_plan_covers_every_sample_and_bin_once(n, K):
+    plan = carrier_cuda.windowed_search_plan(n, K)
+    assert plan["smem"] <= SMEM_MAX
+    C, rows, threads, warps = (plan["columns"], plan["rows"],
+                               plan["threads"], plan["warps"])
+    assert rows * C == n
+    # sample i = C h + c: column c's thread is c mod threads
+    h, c = np.divmod(np.arange(n), C)
+    owner = np.zeros((threads, rows * -(-C // threads)), dtype=np.int64)
+    np.add.at(owner, (c % threads, (c // threads) * rows + h), 1)
+    assert owner.sum() == n and owner.max() == 1
+    # bin k → warp k mod warps, its class (k mod 16) // warps, slot k // 16:
+    # each bin once
+    k = np.arange(K)
+    ncls = 16 // warps
+    seen = np.zeros((warps, ncls, -(-K // 16)), dtype=np.int64)
+    np.add.at(seen, (k % warps, (k % 16) // warps, k // 16), 1)
+    assert seen.sum() == K and seen.max() == 1
+    m, lane = np.divmod(np.arange(C), 32)
+    assert np.array_equal(32 * m + lane, np.arange(C))
+
+
+@pytest.mark.parametrize("n", [18944, 32768, 65536])
+def test_k8_plan_refuses_rows_it_cannot_stage(n):
+    with pytest.raises(ValueError, match="shared memory"):
+        carrier_cuda.windowed_search_plan(n, 53)
+
+
+def _w(num, den):
+    return np.exp(-2j * np.pi * (np.asarray(num, dtype=np.float64) / den))
+
+
+def _dft16_radix4(x):
+    """The kernel's dft16: 4-point DFTs over h1, twiddles W_16^{r1 h2},
+    4-point DFTs over h2 → (..., 16) with x[..., r] = A[r]."""
+    W4 = _w(np.outer(np.arange(4), np.arange(4)), 4)
+    y = x.reshape(*x.shape[:-1], 4, 4)  # [h1][h2]
+    y = np.einsum("rh,...hk->...rk", W4, y)  # [r1][h2]
+    y = y * _w(np.outer(np.arange(4), np.arange(4)), 16)
+    y = np.einsum("...rh,sh->...rs", y, W4)  # [r1][r2]
+    return y.transpose(*range(y.ndim - 2), -1, -2).reshape(x.shape)  # r1 + 4 r2
+
+
+def _k8_split(iq, first1, K):
+    """numpy mirror of windowed_search_kernel's sum: A[r][c] by the column
+    DFT, then per warp its residue classes, WD_NB bins of each at a time,
+    with the integer phase walks q, qm, p."""
+    B, n = iq.shape
+    C, N32 = n // 16, n // 32
+    nb = carrier_cuda.WD_NB
+    tab = _w(np.arange(n), n)
+    tw32 = tab[32 * np.arange(N32)]
+    lanes = np.arange(32)
+    M = -(-C // 32)
+    out = np.zeros((B, K), dtype=np.complex128)
+    for b in range(B):
+        A = _dft16_radix4(iq[b].reshape(16, C).T).T  # [r][c]
+        Apad = np.concatenate([A, np.zeros((16, 32 * M - C))], axis=1)
+        f0 = int(first1[b]) % n
+        warps = carrier_cuda.WD_THREADS // 32
+        for warp, c in itertools.product(range(warps), range(16 // warps)):
+            fm = (f0 + warp + warps * c) % n
+            qc, phc = fm % N32, (fm * lanes) % n
+            t0 = 0
+            while 16 * t0 + warp < K:
+                q, p = qc, phc.copy()
+                for t in range(nb):
+                    if t:
+                        q = q + 16 % N32 - (N32 if q + 16 % N32 >= N32 else 0)
+                        d = (16 * lanes) % n
+                        p = p + d - np.where(p + d >= n, n, 0)
+                    acc = np.zeros(32, dtype=np.complex128)
+                    qm = 0
+                    for m in range(M):
+                        acc += tw32[qm] * Apad[fm & 15, 32 * m + lanes]
+                        qm = qm + q - (N32 if qm + q >= N32 else 0)
+                    k = warp + warps * c + 16 * (t0 + t)
+                    if k < K:
+                        out[b, k] = (acc * tw32[p >> 5] * tab[p & 31]).sum()
+                step = 16 * nb
+                qc = qc + step % N32 - (N32 if qc + step % N32 >= N32 else 0)
+                d = (step * lanes) % n
+                phc = phc + d - np.where(phc + d >= n, n, 0)
+                t0 += nb
+    return out
+
+
+@pytest.mark.parametrize("n,K,first", [(4096, 53, [3, 700]), (768, 9, [-5, 40]),
+                                       (12288, 103, [1000, 12280])])
+def test_k8_split_matches_plain(n, K, first):
+    """The kernel's 16 x C split and phase walks give the plain bins
+    (float64 here: the mirror checks the index arithmetic, the card tests
+    the float32 rounding)."""
+    rng = np.random.default_rng(n)
+    raw = rng.integers(-3000, 3000, (len(first), 2 * n)).astype(np.int16)
+    first1 = torch.tensor(first, dtype=torch.int64)
+    want = carrier_cuda.windowed_dft_raw_plain(carrier.pack_raw(torch.as_tensor(raw)),
+                                              first1, K).numpy()
+    iq = raw[:, 0::2].astype(np.float64) + 1j * raw[:, 1::2]
+    got = _k8_split(iq, first1.numpy(), K)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _acc_root8(u, o):
+    """numpy copy of csrc/carrier.cu acc_root8's eight cases: u·W_8^o."""
+    h = np.float32(0.70710678118654752)
+    x, y = u.real, u.imag
+    return [complex(x, y), complex(h * (x + y), h * (y - x)), complex(y, -x),
+            complex(h * (y - x), -h * (x + y)), complex(-x, -y),
+            complex(-h * (x + y), h * (x - y)), complex(-y, x),
+            complex(h * (x - y), h * (x + y))][o]
+
+
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
+def test_k8_eighth_roots_match_the_table(n):
+    """For n = 512·MC, K8 turns the bins f + 16t of a class by
+    W_{n/32}^{f m} · W_8^{((t m) mod MC)·8/MC} instead of one table load
+    each: the same twiddle, and its eight cases are u·W_8^o."""
+    MC, N32 = n // 512, n // 32
+    rng = np.random.default_rng(n)
+    for o in range(8):
+        u = complex(*rng.normal(size=2))
+        assert abs(_acc_root8(u, o) - u * _w(o, 8)) <= 1e-6 * abs(u)
+    for f in rng.integers(0, n, 5):
+        for m in range(MC):
+            for t in range(4):
+                o = ((t * m) % MC) * (8 // MC)
+                want = _w((f + 16 * t) * m % N32, N32)
+                assert abs(_w(f * m % N32, N32) * _w(o, 8) - want) < 1e-12
