@@ -26,7 +26,7 @@ against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
 CLI in a subprocess.  Last, after every timed block, the device time of
-kernels K8, K5 and K6 under torch.profiler (phase 12).
+kernels K8, K5, K6 and K9 under torch.profiler (phase 12).
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -372,6 +372,27 @@ def k8_inputs(dev, nchan: int = NCHAN):
                              cfg.actual_binsize)
 
 
+def k9_inputs(dev, nchan: int = NCHAN):
+    """K9's inputs at the bench shape, nchan x 32 x 65,536, K = 107, from
+    a clean block (seed 9) and its cold-start step → (PMConfig,
+    pm_scan_locked_fused's positional arguments)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier
+
+    cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
+    n, K, T = cfg.fftsize, carrier._window_bins(cfg), 32
+    _, raw, _ = bench_block(dev, nchan, T * n, NOISE_CLEAN, seed=9)
+    blocks = raw.reshape(nchan, T, 2 * n)
+    carry1, out0 = carrier.pm_demod_block_raw(
+        carrier.init_carry(nchan, cfg, device=dev), blocks[:, 0], cfg)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    return cfg, (carrier.pack_raw(blocks), out0.baseband, init,
+                      cfg.samprate, cfg.actual_binsize, cfg.search_width,
+                      cfg.cn0_threshold, K)
+
+
 def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
     """Phase 2's K8/K9 part.  K8 (the windowed DFT search alone) at the
     narrowband path's shape, 128 x 4096, K = 53, beside K1 and the whole
@@ -434,16 +455,8 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
     del packed, raw, iq, s_k, s_p, s_d
 
     # ---- K9 at the bench shape
-    cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
-    n, K, T = cfg.fftsize, carrier._window_bins(cfg), 32
-    _, raw, _ = bench_block(dev, nchan, T * n, NOISE_CLEAN, seed=9)
-    blocks = raw.reshape(nchan, T, 2 * n)
-    carry1, out0 = carrier.pm_demod_block_raw(
-        carrier.init_carry(nchan, cfg, device=dev), blocks[:, 0], cfg)
-    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
-                        out0.carrier_freq, carry1.search_center], dim=1)
-    args = (carrier.pack_raw(blocks), out0.baseband, init, cfg.samprate,
-            cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
+    cfg, args = k9_inputs(dev, nchan)
+    n, K, T = cfg.fftsize, args[-1], args[0].shape[1]
     cs_k, st_k, tot_k = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
     cs_p, st_p, tot_p = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
     bb_k = (cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16)
@@ -1445,13 +1458,13 @@ def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
 
 
 def profile_kernels(dev, checks: dict, batch: int) -> None:
-    """Phase 12: the device time of K8, K5 and K6 from torch.profiler,
+    """Phase 12: the device time of K8, K5, K6 and K9 from torch.profiler,
     beside their CUDA-event times of phase 2 and 5 (the profiler's hooks
     slow every later launch of the process, so this runs after every timed
     block).  K8 at the narrowband shape, with torch.fft.fft's device time
     over all bins of the same block, must show one kernel per call; K5/K6
     over one K=24 cycle at B=2 and at the threshold block's batch (the
-    record keeps the latter)."""
+    record keeps the latter); K9 at the bench shape of phase 2."""
     import torch
 
     from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
@@ -1485,11 +1498,18 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         del m, da, db
     checks["viterbi_a"]["device_ms"], checks["viterbi_b"]["device_ms"] = \
         dev_ms[batch]
+    _, args = k9_inputs(dev)
+    k9_dev = kernel_device_ms(
+        lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1), 5,
+        "pm_scan_kernel")
+    checks["pm_scan"]["device_ms"] = k9_dev
+    del args
     log(f"phase 12 device time (torch.profiler): K8 {k8_dev:.5f} ms in one "
         f"kernel per call, torch.fft.fft {fft_dev:.5f} ms (all {nbins} bins); "
         f"K5/K6 at K=24: "
         + ", ".join(f"B={B} {a:.4f} / {b:.4f} ms" for B, (a, b)
-                    in dev_ms.items()))
+                    in dev_ms.items())
+        + f"; K9 at {NCHAN} x 32 x 65,536, K = 107: {k9_dev:.4f} ms")
     torch.cuda.empty_cache()
 
 

@@ -99,9 +99,9 @@ _SIGNATURES = {
     # n, tab, stream
     "twiddle_table_launch": (_I, _P, _P),
     # packed, row_stride, bb0, init, B, T, n, K, samprate, binsize, width,
-    # thr, top, flip, tail, csum, stat, tot, stream
+    # thr, top, flip, tail, tab, smem, csum, stat, tot, stream
     "pm_scan_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                       _I, _I, _P, _P, _P, _P),
+                       _I, _I, _P, _I, _P, _P, _P, _P),
     # metrics, out, syms, adjust, gmin, reset, renorm, dec, B, hbits,
     # elem_size, q1, q2, g1flip, g2flip, stream
     "viterbi_acs_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -124,7 +124,7 @@ __device__ __forceinline__ float quinn_tau(float x) {
          k * logf((x + 1.0f - r) / (x + 1.0f + r));
 }
 
-// ---- K1 pass 1 and K9: windowed DFT -----------------------------------
+// ---- K1 pass 1: windowed DFT -----------------------------------------
 // spec[b][k] = sum_i x[i] exp(-2 pi j f i / n), f = first1_b + k, by the
 // split X[f] = sum_l W_n^{f l} sum_h x[256h+l] W_nhi^{(f mod nhi) h}.
 // chirp: NULL, or n de-chirp phasors exp(-2 pi j phi(i)) that rotate the
@@ -924,8 +924,14 @@ extern "C" int windowed_dft_launch(const int32_t* packed, long long row_stride,
 //             version's); a channel whose window fails gets ok 0 and safe
 //             phases, and the caller discards the whole call for the block
 //             scan.
-//   DFT       dft_columns over the K bins, SCAN_THREADS/256 column groups
-//             taking DFT_KT-bin tiles side by side; bins in shared memory.
+//   DFT       the split i = C h + m (h < 256 rows, m < C = n/256 columns):
+//             X[f] = sum_m W_n^{f m} Y_m[f mod 256], Y_m the 256-point DFT
+//             of column m by two 16-point stages (column_dft256_pass),
+//             CD_COLS columns per pass; the outer sum over the passes in
+//             registers, a warp's lanes the pass's columns, its bins
+//             k = warp + 16 j (outer_sum_pass), the pass's twiddles staged
+//             in shared memory one pass ahead and its columns prefetched
+//             into the L2 one pass ahead; bins in shared memory.
 //   peak      warp 0: masked last-max by a shuffle reduction (equal
 //             energies keep the larger bin), then Quinn in lane 0.
 //   moments   every thread, float partials over 16 samples summed in
@@ -933,19 +939,119 @@ extern "C" int windowed_dft_launch(const int32_t* packed, long long row_stride,
 //   emission  SCAN_ITEMS consecutive samples per thread, a block-wide scan
 //             of the int16 values in uint32 (the int32 wraparound of K3),
 //             the running sum in a register of every thread.
-// What bounds it on the H100: operations -- the DFT is 8 flop per sample
-// and bin (2.2e11 flop at 128 x 31 x 65536 x 107: 3.3 ms at 67 TFLOP/s);
-// the bytes (packed in, int32 out: 2.15 GB, 0.64 ms) stream from HBM
-// once, and the DFT's re-reads of a block (ceil(K/16)/groups passes) hit
-// the L2, which holds every channel's current block.  One block per SM:
-// B = 128 is one wave on 132 SMs, so nothing else hides the block's
-// latency; the 16 warps and 32 independent accumulators per thread of the
-// DFT are what keep the FMA pipes fed.
+// What bounds it on the H100: the bytes (packed in, int32 out: 2.15 GB at
+// 128 x 32 x 65536, 0.64 ms) stream from HBM once; the DFT is ~2·10^6 flop
+// per block and channel (two radix-16 stages per column, 8 flop per column
+// and bin in the outer sum), the spin passes one precise sincosf per
+// sample each, read from the L2.  One block per SM: B = 128 is one wave on
+// 132 SMs, so nothing else hides the block's latency.  Clocked per phase
+// on an H100 (utils/k9_phases.py): the emission takes about half of each
+// block t, the moments a third, the DFT a fifth; most of the emission's
+// extra time over the moments goes to its int32 stores (8 consecutive
+// words per thread: each warp store touches 32 sectors).
 #define SCAN_THREADS 512
 #define SCAN_WARPS (SCAN_THREADS / 32)
-#define SCAN_GROUPS (SCAN_THREADS / DFT_THREADS)
 #define SCAN_ITEMS 8
 #define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
+#define CD_COLS 32                    // columns of a pass: a warp's lanes
+#define CD_NBW 8                      // bins of a warp in one round
+#define CD_BINS (SCAN_WARPS * CD_NBW)  // bins of a round
+
+// One pass of the 256-point column DFTs, for SCAN_THREADS threads: columns
+// m0 .. m0 + CD_COLS - 1 of the row (C columns, sample i = C h + m) ->
+// Ys[r * CD_COLS + mc] = Y_{m0 + mc}[r] = sum_h x[C h + m0 + mc] W_256^{r h}.
+// h = 16 h1 + h0, r = r0 + 16 r1:
+//   Y[r0 + 16 r1] = sum_h0 W_16^{r1 h0} W_256^{r0 h0} sum_h1 x[16 h1 + h0] W_16^{r0 h1}
+// Thread (lane mc, warp w): stage 1 over h1 for h0 = w (each load a warp's
+// 32 consecutive words), turned by W_256^{r0 w} (tw256[j] = W_256^j), into
+// T[(r0 * 16 + h0) * CD_COLS + mc] (16 x 16 x CD_COLS float2); a barrier;
+// stage 2 over h0 for r0 = w into Ys; a barrier.  The caller must be done
+// reading Ys when it calls (the first barrier keeps the writes behind it).
+__device__ __forceinline__ void column_dft256_pass(const int32_t* __restrict__ row,
+                                                   int C, int m0, int flip,
+                                                   const float2* tw256,
+                                                   float2* T, float2* Ys) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // the next pass's columns on their way into the L2: row h = threadIdx.x
+  if (m0 + CD_COLS < C && threadIdx.x < 256)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(row + (size_t)C * threadIdx.x +
+                                                   m0 + CD_COLS));
+  float2 x[16];
+#pragma unroll
+  for (int h1 = 0; h1 < 16; ++h1) {
+    float xr, xi;
+    unpack_iq(row[(size_t)C * (16 * h1 + w) + m0 + lane], flip, xr, xi);
+    x[h1] = make_float2(xr, xi);
+  }
+  dft16(x);  // x[4 a + b] = Z[a + 4 b]
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r0 = a + 4 * b;
+      T[(r0 * 16 + w) * CD_COLS + lane] = cmul(x[4 * a + b], tw256[r0 * w]);
+    }
+  __syncthreads();
+#pragma unroll
+  for (int h0 = 0; h0 < 16; ++h0) x[h0] = T[(w * 16 + h0) * CD_COLS + lane];
+  dft16(x);  // x[4 a + b] = Y[w + 16 (a + 4 b)]
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      Ys[(w + 16 * (a + 4 * b)) * CD_COLS + lane] = x[4 * a + b];
+  __syncthreads();
+}
+
+// The twiddle W_n^{32 p u_j} of pass p for bin slot (warp sw, slot j) of a
+// round, u_j = (u0 + 16 j) mod n with u0 = (first1 + k0 + sw) mod n:
+// 32 p u_j = 32 p u0 + 512 p j (mod n), and 512 p j < n/2 (p < n/8192,
+// j < 8), so one subtract keeps the phase exact.  base = (32 p u0) mod n.
+__device__ __forceinline__ float2 pass_twiddle(const float2* __restrict__ tab,
+                                               int n, int p, int j, int base) {
+  int ph = base + 512 * p * j;
+  if (ph >= n) ph -= n;
+  return __ldg(tab + ph);
+}
+
+// The outer sum's share of a pass for the warp's bins j < CD_NBW: lane mc
+// adds W_n^{32 p u_j} Y_{32 p + mc}[u_j mod 256] to acc[j] (pw[j]: the
+// pass's twiddles, staged in shared memory); the lane's own factor
+// W_n^{u_j mc} is applied once, after the last pass (outer_sum_finish).
+__device__ __forceinline__ void outer_sum_pass(const float2* Ys,
+                                               const float2* pw, int u0,
+                                               float2 acc[CD_NBW]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < CD_NBW; ++j) {
+    const float2 y = Ys[((u0 + 16 * j) & 255) * CD_COLS + lane];
+    const float2 wv = pw[j];
+    acc[j].x = fmaf(y.x, wv.x, fmaf(-y.y, wv.y, acc[j].x));
+    acc[j].y = fmaf(y.x, wv.y, fmaf(y.y, wv.x, acc[j].y));
+  }
+}
+
+// Bin j's lane factor W_n^{u_j lane} (u_j lane < 32 n: exact in int32),
+// then the sum over the warp's lanes; lane 0 stores bin k0 + 16 j when it
+// is below K.
+__device__ __forceinline__ void outer_sum_finish(const float2* __restrict__ tab,
+                                                 int n, int u0, int k0, int K,
+                                                 float2 acc[CD_NBW],
+                                                 float2* spec) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < CD_NBW; ++j) {
+    int u = u0 + 16 * j;
+    if (u >= n) u -= n;
+    float2 v = cmul(acc[j], __ldg(tab + (int)(((unsigned)u * (unsigned)lane) %
+                                              (unsigned)n)));
+    for (int off = 16; off > 0; off >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+    }
+    if (lane == 0 && k0 + 16 * j < K) spec[k0 + 16 * j] = v;
+  }
+}
 
 struct ScanParams {
   float samprate, binsize, width, thr, top;  // top = fs/2 - binsize, float32
@@ -989,14 +1095,17 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
     pm_scan_kernel(const int32_t* __restrict__ packed, long long row_stride,
                    const int16_t* __restrict__ bb0,
                    const float* __restrict__ init, int T, int n, int flip,
-                   ScanParams P, int tail, int32_t* __restrict__ csum,
-                   float* __restrict__ stat, int32_t* __restrict__ tot) {
+                   ScanParams P, int tail, const float2* __restrict__ tab,
+                   int32_t* __restrict__ csum, float* __restrict__ stat,
+                   int32_t* __restrict__ tot) {
   extern __shared__ float2 smem[];
-  const int nhi = n >> 8;
+  const int C = n >> 8;  // columns of the split, a multiple of CD_COLS
   const int K = P.wmax;
-  float2* tw = smem;                         // nhi twiddles W_nhi^j
-  float2* spec = smem + nhi;                 // K window bins
-  float2* red = spec + K;                    // SCAN_WARPS x DFT_KT partials
+  float2* Tx = smem;                       // 16 x 16 x CD_COLS stage-1 tile
+  float2* Ys = Tx + 256 * CD_COLS;         // 256 x CD_COLS column DFTs
+  float2* tw256 = Ys + 256 * CD_COLS;      // W_256^j
+  float2* pw = tw256 + 256;                // 2 x CD_BINS pass twiddles
+  float2* spec = pw + 2 * CD_BINS;         // K window bins
   __shared__ double mred[SCAN_WARPS][5];
   __shared__ uint32_t scratch[SCAN_WARPS + 1];
   __shared__ float s_center, s_cn0, s_freq, s_cyc, s_amp, s_cn0new, s_ur, s_ui;
@@ -1009,7 +1118,7 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
   int32_t* crow = csum + (size_t)b * ldc;
   float* srow = stat + (size_t)b * T * 6;
 
-  dft_twiddles(tw, nhi);
+  dft_twiddles(tw256, 256);
   if (tid == 0) {
     const float* in = init + 4 * b;  // amp, cn0, freq, centre after block 0
     s_center = in[3];
@@ -1061,35 +1170,38 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
     __syncthreads();
     const int first1 = s_first1;
 
-    // ---- the K window bins
-    const int g = tid / DFT_THREADS, l = tid % DFT_THREADS;
-    const int ntiles = (K + DFT_KT - 1) / DFT_KT;
-    for (int p = 0; p < ntiles; p += SCAN_GROUPS) {
-      const int tile = p + g;
-      if (tile < ntiles) {  // uniform over each 256-thread group
-        float2 v[DFT_KT];
-        dft_columns(row, n, flip, nullptr, tw, first1 + tile * DFT_KT, l, v);
-        if (lane == 0) {
+    // ---- the K window bins, CD_BINS a round: column DFTs pass by pass,
+    //      the outer sum in registers
+    for (int k0 = 0; k0 < K; k0 += CD_BINS) {
+      if (k0 > 0) __syncthreads();  // the last round's readers of pw are done
+      const int u0 = (int)(((long long)first1 + k0 + warp) % n + n) % n;
+      float2 acc[CD_NBW];
 #pragma unroll
-          for (int k = 0; k < DFT_KT; ++k) red[warp * DFT_KT + k] = v[k];
+      for (int j = 0; j < CD_NBW; ++j) acc[j] = make_float2(0.0f, 0.0f);
+      // the pass twiddles, one slot (warp sw, slot sj) per thread below
+      // CD_BINS, double-buffered in pw: pass p + 1's load is in flight
+      // during pass p's column DFTs, its store lands behind pass p + 1's
+      // first barrier
+      const int sw = tid / CD_NBW, sj = tid % CD_NBW;
+      const int su0 = (int)(((long long)first1 + k0 + sw) % n + n) % n;
+      const int sd = (int)((32LL * su0) % n);  // sbase's step per pass
+      int sbase = 0;
+      if (tid < CD_BINS) pw[tid] = pass_twiddle(tab, n, 0, sj, 0);
+      for (int p = 0; p < C / CD_COLS; ++p) {
+        float2 nxt = make_float2(0.0f, 0.0f);
+        const bool more = tid < CD_BINS && p + 1 < C / CD_COLS;
+        if (more) {
+          sbase += sd;
+          if (sbase >= n) sbase -= n;
+          nxt = pass_twiddle(tab, n, p + 1, sj, sbase);
         }
+        column_dft256_pass(row, C, CD_COLS * p, flip, tw256, Tx, Ys);
+        outer_sum_pass(Ys, pw + (p & 1) * CD_BINS + warp * CD_NBW, u0, acc);
+        if (more) pw[((p + 1) & 1) * CD_BINS + tid] = nxt;
       }
-      __syncthreads();
-      if (tid < SCAN_GROUPS * DFT_KT) {
-        const int gg = tid / DFT_KT, k = tid % DFT_KT;
-        const int kk = (p + gg) * DFT_KT + k;
-        if (kk < K) {
-          float sr = 0.0f, si = 0.0f;
-          for (int w = 0; w < DFT_THREADS / 32; ++w) {
-            const float2 r = red[(gg * (DFT_THREADS / 32) + w) * DFT_KT + k];
-            sr += r.x;
-            si += r.y;
-          }
-          spec[kk] = make_float2(sr, si);
-        }
-      }
-      __syncthreads();
+      outer_sum_finish(tab, n, u0, k0 + warp, K, acc, spec);
     }
+    __syncthreads();
 
     // ---- masked last-max peak + Quinn (warp 0)
     if (warp == 0) {
@@ -1214,20 +1326,22 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
 // stride n; bb0 (B, n) int16 block-0 baseband; init (B, 4) f32 [amp, cn0,
 // freq, centre after block 0]; outputs csum (B, T*n + tail) int32 (columns
 // past T*n hold the total), stat (B, T, 6) f32 [amp, cn0, freq, ok, centre,
-// centre] (block 0: [init..., 1, 0, centre]), tot (B,) int32.
+// centre] (block 0: [init..., 1, 0, centre]), tot (B,) int32.  n must be a
+// multiple of 256 CD_COLS; tab (n,) float2 from twiddle_table_launch; smem:
+// the bytes of the wrapper's plan (carrier_cuda.pm_scan_plan).
 extern "C" int pm_scan_launch(const int32_t* packed, long long row_stride,
                               const int16_t* bb0, const float* init, int B,
                               int T, int n, int K, float samprate,
                               float binsize, float width, float thr, float top,
-                              int flip, int tail, int32_t* csum, float* stat,
-                              int32_t* tot, void* stream) {
-  const int nhi = n >> 8;
-  size_t smem = (size_t)(nhi + K + SCAN_WARPS * DFT_KT) * sizeof(float2);
+                              int flip, int tail, const float* tab, int smem,
+                              int32_t* csum, float* stat, int32_t* tot,
+                              void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      pm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   ScanParams P = {samprate, binsize, width, thr, top, K};
   pm_scan_kernel<<<B, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
-      packed, row_stride, bb0, init, T, n, flip, P, tail, csum, stat, tot);
+      packed, row_stride, bb0, init, T, n, flip, P, tail, (const float2*)tab,
+      csum, stat, tot);
   return (int)cudaGetLastError();
 }

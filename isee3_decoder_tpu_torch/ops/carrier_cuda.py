@@ -29,8 +29,6 @@ from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks_plain
 SPIN_CHUNK = 4096  # samples per moments/emit block (csrc/carrier.cu)
 CHIRP_CHUNK = 8192  # de-chirp coefficient chunk (csrc/carrier.cu)
 SCAN_CHUNK = 8192  # the TPU kernels' chunk: K9's gate, K1's over K8 + K2
-SCAN_WARPS = 16  # warps of a K9 block (csrc/carrier.cu)
-DFT_KT = 16  # bins per DFT tile (csrc/carrier.cu)
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 
 
@@ -427,6 +425,46 @@ def pm_scan_locked_plain(
     return csum[:, : T * n + tail], torch.stack(rows, dim=1), tot
 
 
+SCAN_THREADS = 512  # threads of a K9 block (csrc/carrier.cu)
+CD_COLS = 32  # columns of one K9 column-DFT pass: a warp's lanes
+CD_NBW = 8  # bins of a K9 warp in one round of the outer sum
+_SCAN_STATIC_SMEM = 1024  # K9's static shared memory, rounded up
+
+
+@functools.lru_cache(maxsize=64)
+def pm_scan_plan(n: int, K: int) -> dict:
+    """K9's launch plan for blocks of n samples and K window bins
+    (csrc/carrier.cu ``pm_scan_kernel``): one block of SCAN_THREADS = 512
+    threads (16 warps) per channel.  Sample i = C·h + m is row h < 256 of
+    column m < C = n/256; a pass takes CD_COLS columns m = 32p + lane:
+    stage 1 in warp w the 16-point DFT over h1 of the rows h = 16·h1 + w,
+    stage 2 in warp w the 16-point DFT over h0 for the residues
+    r = w + 16·r1, each (column, residue) once.  The outer sum
+    X[f] = Σ_m W_n^{f·m} Y_m[f mod 256] runs in rounds of 16·CD_NBW bins:
+    bin k = k0 + w + 16·j goes to warp w, slot j, each lane summing its
+    column over the passes.  Shared memory: the stage-1 tile (16·16·32
+    float2), the pass's column DFTs (256·32 float2), W_256^j (256 float2),
+    the outer twiddles of two passes (2·16·CD_NBW float2) and the K bins,
+    beside ~1 KB of static shared memory — the same for every n, so the
+    plan covers every n that is a multiple of 256·CD_COLS = 8192 (the
+    fused scan's gate, carrier._scan_fused_capable) for K ≤ 2048
+    (carrier._fast_search_capable); anything else raises."""
+    if n <= 0 or n % (256 * CD_COLS) != 0:
+        raise ValueError(f"n = {n} must be a positive multiple of "
+                         f"{256 * CD_COLS}")
+    if not 3 <= K <= n:
+        raise ValueError(f"K = {K} window bins out of range 3..{n}")
+    bins = (SCAN_THREADS // 32) * CD_NBW
+    smem = (16 * 16 * CD_COLS + 256 * CD_COLS + 256 + 2 * bins + K) * 8
+    if smem > _SMEM_MAX - _SCAN_STATIC_SMEM:
+        raise ValueError(f"n = {n}, K = {K}: K9 needs {smem} bytes of shared "
+                         f"memory, over {_SMEM_MAX - _SCAN_STATIC_SMEM}")
+    return {"threads": SCAN_THREADS, "warps": SCAN_THREADS // 32,
+            "columns": n // 256, "columns_per_pass": CD_COLS,
+            "passes": n // 256 // CD_COLS, "bins_per_warp": CD_NBW,
+            "bins_per_round": bins, "rounds": -(-K // bins), "smem": smem}
+
+
 def pm_scan_locked_fused(
     packed_blocks: torch.Tensor,
     bb0: torch.Tensor,
@@ -468,8 +506,6 @@ def pm_scan_locked_fused(
     if packed_blocks.stride(2) != 1 or packed_blocks.stride(1) != n:
         raise ValueError("packed_blocks: each channel's T blocks must be "
                          "contiguous")
-    if n % 256 != 0:
-        raise ValueError(f"n = {n} must be a positive multiple of 256")
     if bb0.dtype != torch.int16 or tuple(bb0.shape) != (B, n) \
             or not bb0.is_contiguous() or bb0.device != dev:
         raise ValueError("bb0 must be a contiguous (B, n) int16 tensor on the "
@@ -478,13 +514,10 @@ def pm_scan_locked_fused(
             or not init.is_contiguous() or init.device != dev:
         raise ValueError("init must be a contiguous (B, 4) float32 tensor on "
                          "the input's device")
-    if not 3 <= wmax <= n or B < 1 or tail < 0 or T * n + tail >= 2**31:
+    if B < 1 or tail < 0 or T * n + tail >= 2**31:
         raise ValueError(f"unsupported K9 shape B={B} T={T} n={n} K={wmax} "
                          f"tail={tail}")
-    # twiddles, window bins and DFT partials, beside ~1 KB of static
-    # shared memory
-    if (n // 256 + wmax + SCAN_WARPS * DFT_KT) * 8 > _SMEM_MAX - 1024:
-        raise ValueError(f"n = {n}, K = {wmax}: tables exceed shared memory")
+    plan = pm_scan_plan(n, wmax)
     fs, bsz, w, thr, top = _scan_constants(samprate, binsize, search_width,
                                            cn0_threshold)
     csum = torch.empty((B, T * n + tail), dtype=torch.int32, device=dev)
@@ -493,7 +526,8 @@ def pm_scan_locked_fused(
     err = _kernels.lib().pm_scan_launch(
         packed_blocks.data_ptr(), packed_blocks.stride(0), bb0.data_ptr(),
         init.data_ptr(), B, T, n, wmax, fs, bsz, w, thr, top, int(flip), tail,
-        csum.data_ptr(), stat.data_ptr(), tot.data_ptr(),
+        twiddle_table(n, dev).data_ptr(), plan["smem"], csum.data_ptr(),
+        stat.data_ptr(), tot.data_ptr(),
         _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "pm_scan_launch")

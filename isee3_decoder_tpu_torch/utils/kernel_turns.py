@@ -1,5 +1,5 @@
-"""Time kernels K8 and K5 of one checkout of the port, for comparing two
-trees in turns on one card.
+"""Time kernels K8, K5 and K9 of one checkout of the port, for comparing
+two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
 
@@ -13,11 +13,15 @@ tree), builds its kernels, and prints one JSON line:
   torch.profiler; ``torch.fft.fft`` over all 4096 bins of the same block
   the same two ways;
 - K5 (``viterbi_cuda.cycle_a``) over a whole K = 24 row phase at B = 10,
-  the threshold block's batch: event ms and device ms per launch.
+  the threshold block's batch: event ms and device ms per launch;
+- K9 (``carrier_cuda.pm_scan_locked_fused``, the pm scan in one launch)
+  at the bench shape, 128 x 32 x 65,536, K = 107, on a clean block
+  (noise 2500): event ms and device ms per launch.
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
-K5: bit for bit).  Needs a CUDA card; the card's nvidia-smi name and power
+K5: bit for bit; K9: ok lanes and locks equal, frequency and centre
+within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB).  Needs a CUDA card; the card's nvidia-smi name and power
 limit are in the line.
 """
 
@@ -161,8 +165,53 @@ def main() -> int:
     out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5,
                  "ms": ms, "device_ms": dms, "kernels_per_call": per_call,
                  "kernels": names}
+    del mk, mp, dk, dp, da, m0
+
+    # ---- K9 at the bench shape
+    B, T = 128, 32
+    cfg = carrier.PMConfig(samprate=250_000.0, binsize=4.0, search_width=200.0)
+    n, K = cfg.fftsize, carrier._window_bins(cfg)
+    frames = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        random_frames(np.random.default_rng(0), 4), (B, 4, 128))), device=dev)
+    freqs = torch.as_tensor(20_000.0 + 137.0 * np.arange(B),
+                            dtype=torch.float32, device=dev)
+    gen.manual_seed(9)
+    iq = synthesize_iq_device(frames, freqs, gen, T * n, samprate=cfg.samprate,
+                              symrate=1024.0, noise_std=2500.0)
+    blocks = to_raw_int16(iq).reshape(B, T, 2 * n)
+    del iq
+    carry1, out0 = carrier.pm_demod_block_raw(
+        carrier.init_carry(B, cfg, device=dev), blocks[:, 0], cfg)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    args = (carrier.pack_raw(blocks), out0.baseband, init, cfg.samprate,
+            cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
+    del blocks
+    cs_k, st_k, _ = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+    cs_p, st_p, _ = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
+    bb_err = int(((cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16).int()
+                  - (cs_p[:, 1:] - cs_p[:, :-1]).to(torch.int16).int())
+                 .abs().max())
+    d = (st_k - st_p).abs().amax(dim=(0, 1))
+    thr = cfg.cn0_threshold
+    ok9 = (bool((st_k[:, 1:, 3] > 0).all())
+           and bool(torch.equal(st_k[..., 3], st_p[..., 3]))
+           and bool(torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr))
+           and float(d[2]) <= 5e-3 and float(d[5]) <= 5e-3
+           and float(d[1]) <= 1e-2 and bb_err <= 1)
+    del cs_k, cs_p, st_k, st_p
+
+    def k9():
+        carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+
+    ms = _event_ms(torch, k9, 5)
+    dms, per_call, names = _device_ms(torch, k9, 5)
+    out["k9"] = {"shape": f"{B} x {T} x {n}, K = {K}", "ok": ok9,
+                 "max_dfreq_hz": float(d[2]), "max_dcn0_db": float(d[1]),
+                 "max_dbaseband_lsb": bb_err, "ms": ms, "device_ms": dms,
+                 "kernels_per_call": per_call, "kernels": names}
     print(json.dumps(out), flush=True)
-    return 0 if ok8 and ok5 else 1
+    return 0 if ok8 and ok5 and ok9 else 1
 
 
 if __name__ == "__main__":

@@ -615,6 +615,50 @@ def test_k9_matches_plain(dev, B, T, flip):
     assert torch.equal(cs_k[:, T * n:], tot_k[:, None].expand(B, 2))
 
 
+@pytest.mark.parametrize("samprate,B,T,aligned",
+                         [(32768.0, 8, 3, True), (250_000.0, 4, 3, True),
+                          (32768.0, 3, 2, False)],
+                         ids=["n8192", "n65536", "n8192-unaligned"])
+def test_k9_column_dft_matches_plain(dev, samprate, B, T, aligned):
+    """K9's window bins by 256-point column DFTs (one pass of 32 columns at
+    n = 8192, eight at the bench's n = 65,536, K = 53 and 107; and rows
+    that start 4 bytes past a 16-byte boundary) against the
+    plain version, with chip_smoke.py's tolerances: ok lanes and locks
+    equal, frequency and centre within 5e-3 Hz, C/N0 within 1e-2 dB,
+    amplitude within rtol 1e-5, baseband within 1 LSB, totals equal to
+    the edge column."""
+    cfg = carrier.PMConfig(samprate=samprate, binsize=4.0, search_width=100.0)
+    n, K = cfg.fftsize, carrier._window_bins(cfg)
+    assert carrier_cuda.pm_scan_plan(n, K)["passes"] == n // 8192
+    blocks = _scan_inputs(dev, B, T, cfg, seed=21)
+    carry1, out0 = carrier.pm_demod_block_raw(
+        carrier.init_carry(B, cfg, device=dev), blocks[:, 0], cfg)
+    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                        out0.carrier_freq, carry1.search_center], dim=1)
+    packed = carrier.pack_raw(blocks)
+    if not aligned:  # each channel's blocks start 4 bytes past a 16-byte boundary
+        wide = torch.empty((B, T * n + 1), dtype=torch.int32, device=dev)
+        wide[:, 1:] = packed.reshape(B, T * n)
+        packed = wide[:, 1:].view(B, T, n)
+        assert packed.data_ptr() % 16 != 0 and packed.stride(1) == n
+    args = (packed, out0.baseband, init, cfg.samprate,
+            cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
+    cs_k, st_k, tot_k = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+    cs_p, st_p, tot_p = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
+    thr = cfg.cn0_threshold
+    assert bool((st_k[:, 1:, 3] > 0).all())
+    assert torch.equal(st_k[..., 3], st_p[..., 3])
+    assert torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr)
+    for lane, tol in ((2, 5e-3), (5, 5e-3), (1, 1e-2)):
+        torch.testing.assert_close(st_k[..., lane], st_p[..., lane], atol=tol,
+                                   rtol=0)
+    torch.testing.assert_close(st_k[..., 0], st_p[..., 0], rtol=1e-5, atol=0)
+    bb_k = (cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16).int()
+    bb_p = (cs_p[:, 1:] - cs_p[:, :-1]).to(torch.int16).int()
+    assert int((bb_k - bb_p).abs().max()) <= 1
+    assert torch.equal(tot_k, cs_k[:, -1])
+
+
 def test_k9_fallback_on_the_card(dev):
     """A channel that loses lock after block 0 fails its window in block
     2: pm_demod_scan_csum launches K9 once, discards it, and returns the
@@ -660,6 +704,10 @@ def test_k8_k9_wrappers_refuse_what_the_kernels_do_not_take(dev):
         carrier_cuda.pm_scan_locked_fused(packed, bb0.cpu(), init, *rest)
     with pytest.raises(ValueError, match="init"):
         carrier_cuda.pm_scan_locked_fused(packed, bb0, init.double(), *rest)
+    with pytest.raises(ValueError, match="multiple of 8192"):
+        carrier_cuda.pm_scan_locked_fused(
+            torch.zeros((B, T, 4096), dtype=torch.int32, device=dev),
+            torch.zeros((B, 4096), dtype=torch.int16, device=dev), init, *rest)
     first1 = torch.zeros(B, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="int32"):
         carrier_cuda.windowed_dft_raw(bb0, first1, 53)

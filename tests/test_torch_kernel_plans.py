@@ -1,11 +1,13 @@
-"""Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``)
-and K8 (csrc/carrier.cu ``windowed_search_kernel``), checked on the CPU:
-the tiles cover every state, sample and bin exactly once, every decision
-word has one writer, and shared memory stays within one block's limit.
-The kernels' index arithmetic is mirrored here in numpy (the radix stages
-of K5 with their split branch parities; the 16 x C split of K8 with its
-integer phase walks) and held against the plain versions, since the
-kernels themselves run only on the card.
+"""Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``),
+K8 (csrc/carrier.cu ``windowed_search_kernel``) and K9 (csrc/carrier.cu
+``pm_scan_kernel``), checked on the CPU: the tiles cover every state,
+sample, column and bin exactly once, every decision word has one writer,
+and shared memory stays within one block's limit.  The kernels' index
+arithmetic is mirrored here (the radix stages of K5 with their split
+branch parities; the 16 x C split of K8 with its integer phase walks;
+K9's 256-point column DFTs by two 16-point stages and its outer sum) and
+held against the plain versions, since the kernels themselves run only
+on the card.
 """
 
 import itertools
@@ -289,3 +291,134 @@ def test_k8_eighth_roots_match_the_table(n):
                 o = ((t * m) % MC) * (8 // MC)
                 want = _w((f + 16 * t) * m % N32, N32)
                 assert abs(_w(f * m % N32, N32) * _w(o, 8) - want) < 1e-12
+
+
+# ---------------------------------------------------------------- K9 plan
+
+@pytest.mark.parametrize("n,K", [(n, K) for n in (8192, 16384, 65536, 131072)
+                                 for K in (53, 107)])
+def test_k9_plan_covers_every_column_residue_and_bin_once(n, K):
+    plan = carrier_cuda.pm_scan_plan(n, K)
+    assert plan["smem"] + 1024 <= SMEM_MAX
+    threads, warps, cpp = (plan["threads"], plan["warps"],
+                           plan["columns_per_pass"])
+    C, passes = plan["columns"], plan["passes"]
+    assert threads == 32 * warps and warps == 16 and cpp == 32
+    assert 256 * C == n and passes * cpp == C
+    lane, warp = np.arange(threads) % 32, np.arange(threads) // 32
+    loads = np.zeros(n, dtype=np.int64)
+    ys = np.zeros((C, 256), dtype=np.int64)
+    for p in range(passes):
+        # stage 1: rows 16 h1 + warp of column 32 p + lane
+        for h1 in range(16):
+            np.add.at(loads, C * (16 * h1 + warp) + cpp * p + lane, 1)
+        # stage 2: residues warp + 16 r1 of the same column
+        for r1 in range(16):
+            np.add.at(ys, (cpp * p + lane, warp + 16 * r1), 1)
+    assert (loads == 1).all() and (ys == 1).all()
+    # bin k = k0 + warp + 16 j → (round, warp, slot j): each once
+    k = np.arange(K)
+    rnd, rest = np.divmod(k, plan["bins_per_round"])
+    seen = np.zeros((plan["rounds"], warps, plan["bins_per_warp"]),
+                    dtype=np.int64)
+    np.add.at(seen, (rnd, rest % warps, rest // warps), 1)
+    assert seen.sum() == K and seen.max() == 1
+
+
+def test_k9_plan_covers_what_the_gate_admits():
+    """Every n the fused scan's gate admits (a multiple of 8192 below
+    2^23) at every K the locked search admits (<= 2048) has a plan; other
+    n raise."""
+    for n in (8192, 24576, 65536, 1 << 20, (1 << 23) - 8192):
+        for K in (3, 107, 2048):
+            assert carrier_cuda.pm_scan_plan(n, K)["rounds"] == -(-K // 128)
+    for n in (4096, 12288, 65536 + 256):
+        with pytest.raises(ValueError, match="multiple of 8192"):
+            carrier_cuda.pm_scan_plan(n, 53)
+
+
+def _dft16_regs(x):
+    """The kernel's dft16 on (..., 16) complex, in its register order:
+    4-point DFTs over h1 (h = 4 h1 + h2), the turn W_16^{r1 h2}, 4-point
+    DFTs over h2 → position 4 r1 + r2 holds bin r1 + 4 r2."""
+    k4 = torch.arange(4, dtype=torch.float64)
+    W4 = torch.exp(-2j * torch.pi * torch.outer(k4, k4) / 4)
+    y = x.reshape(*x.shape[:-1], 4, 4)  # [h1][h2]
+    y = torch.einsum("rh,...hk->...rk", W4, y)  # [r1][h2]
+    y = y * torch.exp(-2j * torch.pi * torch.outer(k4, k4) / 16)
+    y = torch.einsum("...rh,sh->...rs", y, W4)  # [r1][r2]
+    return y.reshape(x.shape)
+
+
+def _k9_columns(iq, first1, K):
+    """torch mirror of pm_scan_kernel's window bins (column_dft256_pass,
+    outer_sum_pass, outer_sum_finish) in complex128: per pass of 32
+    columns the stage-1 tile T[r0][h0][lane] turned by W_256^{r0 h0}, the
+    stage-2 column DFTs Ys[r][lane], then per warp w and slot j the bin
+    k0 + w + 16 j summed over the passes with twiddles tab[base + 512 p j]
+    from the W_n^j table, the lane factor tab[(u lane) mod n] after the
+    last pass, and the sum over the lanes."""
+    B, n = iq.shape
+    C = n // 256
+    tab = torch.exp(-2j * torch.pi * torch.arange(n, dtype=torch.float64) / n)
+    tw256 = tab[::C]  # W_256^j
+    pos = torch.arange(16)
+    res = pos // 4 + 4 * (pos % 4)  # the bin in register position pos
+    h0 = torch.arange(16)
+    lane = torch.arange(32)
+    warp, slot = torch.arange(16)[:, None], torch.arange(8)[None, :]
+    out = torch.zeros((B, K), dtype=torch.complex128)
+    for b in range(B):
+        x = torch.as_tensor(iq[b]).reshape(256, C)  # [h][m]
+        for k0 in range(0, K, 128):
+            u0 = (int(first1[b]) + k0 + warp[:, 0]) % n  # (16,)
+            d = (32 * u0) % n
+            base = torch.zeros(16, dtype=torch.int64)
+            acc = torch.zeros((16, 8, 32), dtype=torch.complex128)
+            for p in range(C // 32):
+                cols = x[:, 32 * p: 32 * p + 32].reshape(16, 16, 32)  # h1, h0, lane
+                regs = _dft16_regs(cols.permute(1, 2, 0))  # [h0][lane][pos]
+                T = torch.zeros((16, 16, 32), dtype=torch.complex128)
+                T[res] = (regs * tw256[torch.outer(h0, res)][:, None, :]
+                          ).permute(2, 0, 1)  # [r0][h0][lane]
+                regs2 = _dft16_regs(T.permute(0, 2, 1))  # [r0][lane][pos]
+                Ys = torch.zeros((256, 32), dtype=torch.complex128)
+                Ys[(torch.arange(16)[:, None] + 16 * res[None, :]).reshape(-1)] = \
+                    regs2.permute(0, 2, 1).reshape(256, 32)
+                r = (u0[:, None] + 16 * slot) & 255  # (16, 8)
+                ph = base[:, None] + 512 * p * slot
+                ph = torch.where(ph >= n, ph - n, ph)
+                acc += Ys[r] * tab[ph][:, :, None]
+                base = base + d
+                base = torch.where(base >= n, base - n, base)
+            u = u0[:, None] + 16 * slot
+            u = torch.where(u >= n, u - n, u)
+            v = (acc * tab[(u[:, :, None] * lane) % n]).sum(-1)  # (16, 8)
+            k = k0 + warp + 16 * slot
+            keep = k < K
+            out[b, k[keep]] = v[keep]
+    return out
+
+
+@pytest.mark.parametrize("n,K,first", [
+    (8192, 53, [3, 230, 8192 - 53]),        # 230: f mod 256 wraps
+    (65536, 107, [5000, 250, 65536 - 40]),  # the last: past the top edge
+    (16384, 203, [100, 16384 - 203]),       # two rounds of bins
+])
+def test_k9_column_split_matches_fft_and_plain(n, K, first):
+    """The kernel's split (two 16-point stages with the W_256 turn, passes
+    of 32 columns, outer twiddles from the W_n^j table) gives torch.fft.fft's
+    bins and the plain windowed DFT's, within 1e-5 of the largest bin
+    (complex128 here: the mirror checks the index arithmetic, the card
+    tests the float32 rounding)."""
+    rng = np.random.default_rng(n + K)
+    raw = rng.integers(-3000, 3000, (len(first), 2 * n)).astype(np.int16)
+    first1 = torch.tensor(first, dtype=torch.int64)
+    iq = raw[:, 0::2].astype(np.float64) + 1j * raw[:, 1::2]
+    got = _k9_columns(iq, first1.numpy(), K)
+    idx = (first1[:, None] + torch.arange(K)) % n
+    fft = torch.gather(torch.fft.fft(torch.as_tensor(iq)), 1, idx)
+    assert (got - fft).abs().max() <= 1e-5 * fft.abs().max()
+    plain = carrier_cuda.windowed_dft_raw_plain(
+        carrier.pack_raw(torch.as_tensor(raw)), first1, K)
+    assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
