@@ -26,7 +26,8 @@ against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
 CLI in a subprocess.  Last, after every timed block, the device time of
-kernels K8, K5, K6 and K9 under torch.profiler (phase 12).
+kernels K1 (its search launch and spin passes apart), K8, K5, K6 and K9
+under torch.profiler (phase 12).
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -37,7 +38,10 @@ version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs) and, where
 one PyTorch call computes the same function, that call's time (and for
-K8, K5 and K6 the kernel's device time, ``device_ms``); last,
+K1, K8, K5, K6 and K9 the kernel's device time, ``device_ms``; for K1
+also its search launch's and spin passes' device times, the search's
+bound and, as its yardstick, torch.fft.fft over all bins of the same
+rows, ``search_*``); last,
 the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9, 10 and
 11 end with profile lines: per-stage milliseconds of three runs of the block,
 and the device busy time of one run under torch.profiler.
@@ -194,6 +198,38 @@ def bench_block(dev, nchan: int, nsamples: int, noise_std: float, seed: int,
     return frames, to_raw_int16(iq), carriers
 
 
+def check_k1(args, binsize: float, design: str, label: str) -> int:
+    """K1 (pm_locked_fused) against its plain version on ``args``, with
+    the tolerances of tests/test_carrier_raw.py: peak bins equal,
+    frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within
+    1e-2 dB, baseband within 1 LSB; the wrapper must report ``design``.
+    Returns the baseband's largest difference in LSB."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
+    got = _kernels.backend_used.get("pm_locked")
+    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
+    pk_k = torch.round(f_k / binsize)
+    pk_p = torch.round(f_p / binsize)
+    err = int((bb_k.int() - bb_p.int()).abs().max())
+    log(f"  {label} ({got} design): peak bins equal "
+        f"{bool((pk_k == pk_p).all())}, "
+        f"max |dfreq| {float((f_k - f_p).abs().max()):.3e} Hz, "
+        f"max amp rel {float(((a_k - a_p) / a_p).abs().max()):.3e}, "
+        f"max |dcn0| {float((c_k - c_p).abs().max()):.3e} dB, "
+        f"max |dbaseband| {err} LSB")
+    require(got == design, f"{label}: the {got} design ran, not {design}")
+    require(bool((pk_k == pk_p).all()), f"{label}: peak bins differ")
+    require(float((f_k - f_p).abs().max()) <= 5e-3, f"{label}: freq off")
+    require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), f"{label}: amp off")
+    require(float((c_k - c_p).abs().max()) <= 1e-2, f"{label}: cn0 off")
+    require(err <= 1, f"{label}: baseband off by more than 1 LSB")
+    return err
+
+
 def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     """Phase 2: every kernel against its plain version on the same
     inputs, at the main path's shapes.  Returns per-kernel records."""
@@ -209,42 +245,34 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     out = {}
     cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
     n = cfg.fftsize
-    _, raw, carriers = bench_block(dev, nchan, n, NOISE_CLEAN, seed=5)
-    packed = carrier.pack_raw(raw)
+    args, iq, carriers = k1_inputs(dev, nchan)
+    packed, K = args[0], args[3]
 
     # ---- K1: locked pm block (tolerances of tests/test_carrier_raw.py)
-    carry = carrier.PMCarry(search_center=carriers,
-                            cn0=torch.full_like(carriers, 60.0))
-    require(carrier._fast_search_ok(carry, cfg), "K1 inputs not locked")
-    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    K = carrier._window_bins(cfg)
-    args = (packed, first - 1, last - first, K, cfg.samprate,
-            cfg.actual_binsize)
-    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
-    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
-    pk_k = torch.round(f_k / cfg.actual_binsize)
-    pk_p = torch.round(f_p / cfg.actual_binsize)
-    err = int((bb_k.int() - bb_p.int()).abs().max())
-    log(f"  K1 pm_locked: peak bins equal {bool((pk_k == pk_p).all())}, "
-        f"max |dfreq| {float((f_k - f_p).abs().max()):.3e} Hz, "
-        f"max amp rel {float(((a_k - a_p) / a_p).abs().max()):.3e}, "
-        f"max |dcn0| {float((c_k - c_p).abs().max()):.3e} dB, "
-        f"max |dbaseband| {err} LSB")
-    require(bool((pk_k == pk_p).all()), "K1 peak bins differ")
-    require(float((f_k - f_p).abs().max()) <= 5e-3, "K1 freq off")
-    require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K1 amp off")
-    require(float((c_k - c_p).abs().max()) <= 1e-2, "K1 cn0 off")
-    require(err <= 1, "K1 baseband off by more than 1 LSB")
+    err = check_k1(args, cfg.actual_binsize, "columns",
+                   f"K1 pm_locked at {nchan} x {n}, K = {K}")
     # reads the packed IQ, writes the int16 baseband; the window bins'
-    # DFT, then the spin-down's phase step and rotation (8 per sample)
+    # DFT, then the spin-down's phase step and rotation (8 per sample).
+    # No one PyTorch call does K1's whole function; the search launch's
+    # yardstick is torch.fft.fft over all n bins of the same rows
+    # (search_library_ms), its bound the packed words read once.
     out["pm_locked"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: carrier_cuda.pm_locked_fused(*args), 20),
         plain_ms=cuda_ms(lambda: carrier_cuda.pm_locked_plain(*args), 5),
         library_ms=None,
+        search_library_ms=cuda_ms(lambda: torch.fft.fft(iq, dim=-1), 20),
+        search_bound_ms=bound(nchan * n * 4 + nchan * 8, nchan * dft_ops(n, K),
+                              F32_OPS_PER_S)["bound_ms"],
         **bound(nchan * n * (4 + 2), nchan * (dft_ops(n, K) + 8.0 * n),
                 F32_OPS_PER_S),
     )
+    r = out["pm_locked"]
+    log(f"  K1 {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} by {r['bound_by']}); the search's yardstick "
+        f"torch.fft.fft over all {n} bins {r['search_library_ms']:.4f} ms, "
+        f"its bound {r['search_bound_ms']:.4f} ms")
+    del iq, args
 
     # ---- K2: spin-down at a given carrier
     f = carriers + 0.125
@@ -267,7 +295,7 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
         # phase step and complex rotation per sample (sincos not counted)
         **bound(nchan * n * (4 + 2), 8.0 * nchan * n, F32_OPS_PER_S),
     )
-    del packed, raw
+    del packed
 
     # ---- K3: prefix sum, exact, at T=32 blocks (8.4 s of signal)
     gen = torch.Generator(device=dev)
@@ -347,6 +375,27 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     )
     out.update(check_viterbi(dev))
     return out
+
+
+def k1_inputs(dev, nchan: int = NCHAN):
+    """K1's call at the bench shape, nchan x 65,536, K = 107, on a clean
+    block (seed 5) of carriers 20 kHz + 137 Hz·i, each locked on its own
+    carrier → (pm_locked_fused's positional arguments, the block as
+    complex64 IQ, the carriers)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier
+
+    cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
+    _, raw, carriers = bench_block(dev, nchan, cfg.fftsize, NOISE_CLEAN,
+                                   seed=5)
+    carry = carrier.PMCarry(search_center=carriers,
+                            cn0=torch.full_like(carriers, 60.0))
+    require(carrier._fast_search_ok(carry, cfg), "K1 inputs not locked")
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    args = (carrier.pack_raw(raw), first - 1, last - first,
+            carrier._window_bins(cfg), cfg.samprate, cfg.actual_binsize)
+    return args, carrier.iq_from_interleaved(raw), carriers
 
 
 def k8_inputs(dev, nchan: int = NCHAN):
@@ -443,7 +492,14 @@ def check_search_kernels(dev, nchan: int = NCHAN) -> dict:
         f, _ = carrier.find_carrier_windowed_raw(packed, carry, cfg)
         return carrier_cuda.spin_down_fused(packed, f, cfg.samprate)
 
+    # K1's "direct" design at n = 4096: the narrowband chain's locked
+    # block with a Doppler rate (and the phase-10 K1 dispatch without one)
     k1_args = search  # K1 takes the same window
+    for doppler in (0.0, 50.0):
+        check_k1((*search, False, doppler / cfg.samprate**2),
+                 cfg.actual_binsize, "direct",
+                 f"K1 pm_locked at {nchan} x {n}, K = {K}, Doppler rate "
+                 f"{doppler:.0f} Hz/s")
     r = out["windowed_dft"]
     log(f"  K8 with its peak pass {r['ms']:.4f} ms (bins alone "
         f"{cuda_ms(lambda: carrier_cuda.windowed_dft_raw(packed, first1, K), 50):.4f}"
@@ -1277,8 +1333,8 @@ def phase_narrowband(dev, nchan: int = NCHAN):
     chunk = carrier_cuda.SCAN_CHUNK
     carrier_cuda.SCAN_CHUNK = 256
     try:
-        rec1, t_k1, l_k1, _ = timed_runs(lambda: receive_block(iq, nframes,
-                                                               cfg))
+        rec1, t_k1, l_k1, b_k1 = timed_runs(lambda: receive_block(iq, nframes,
+                                                                  cfg))
         profile_block(iq, nframes, cfg, "narrowband, K1 dispatch")
     finally:
         carrier_cuda.SCAN_CHUNK = chunk
@@ -1288,6 +1344,8 @@ def phase_narrowband(dev, nchan: int = NCHAN):
         f" launches {l_k1}")
     require(l_k1["pm_locked"] == nblocks - 1 and l_k1["windowed_dft"] == 0,
             f"narrowband K1 dispatch: launches {l_k1}")
+    require(b_k1.get("pm_locked") == "direct",
+            f"narrowband K1 dispatch: K1 design {b_k1.get('pm_locked')}")
     for field in ("data", "good", "decoder", "start_symbol"):
         require(np.array_equal(getattr(rec1, field), getattr(rec, field)),
                 f"narrowband: K1 and K8 dispatch differ in {field}")
@@ -1437,6 +1495,13 @@ def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
     """Device milliseconds per call of fn summed over every kernel it
     launches, the kernels per call and their names, over reps calls
     (after one warm call) under torch.profiler."""
+    total, per_call, by_name = kernels_device_ms(fn, reps)
+    return total, per_call, sorted(by_name)
+
+
+def kernels_device_ms(fn, reps: int) -> tuple[float, float, dict]:
+    """calls_device_ms with the device milliseconds per call of each
+    kernel by name: (total ms per call, kernels per call, {name: ms})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1453,18 +1518,24 @@ def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
             break
     require(len(ev) >= reps // 2, f"profiler saw {len(ev)} kernels in {reps} "
             f"calls in each of {PROFILE_TRIES} sessions")
-    spans = sum(e.time_range.end - e.time_range.start for e in ev)
-    return spans / reps / 1e3, len(ev) / reps, sorted({e.name for e in ev})
+    by_name: dict[str, float] = {}
+    for e in ev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return sum(by_name.values()), len(ev) / reps, by_name
 
 
 def profile_kernels(dev, checks: dict, batch: int) -> None:
-    """Phase 12: the device time of K8, K5, K6 and K9 from torch.profiler,
-    beside their CUDA-event times of phase 2 and 5 (the profiler's hooks
-    slow every later launch of the process, so this runs after every timed
-    block).  K8 at the narrowband shape, with torch.fft.fft's device time
-    over all bins of the same block, must show one kernel per call; K5/K6
-    over one K=24 cycle at B=2 and at the threshold block's batch (the
-    record keeps the latter); K9 at the bench shape of phase 2."""
+    """Phase 12: the device time of K1, K8, K5, K6 and K9 from
+    torch.profiler, beside their CUDA-event times of phase 2 and 5 (the
+    profiler's hooks slow every later launch of the process, so this runs
+    after every timed block).  K8 at the narrowband shape, with
+    torch.fft.fft's device time over all bins of the same block, must show
+    one kernel per call; K1 at the bench shape must show its search launch
+    and the two spin passes, timed apart, with torch.fft.fft over all bins
+    of the same rows; K5/K6 over one K=24 cycle at B=2 and at the threshold
+    block's batch (the record keeps the latter); K9 at the bench shape of
+    phase 2."""
     import torch
 
     from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
@@ -1498,6 +1569,33 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         del m, da, db
     checks["viterbi_a"]["device_ms"], checks["viterbi_b"]["device_ms"] = \
         dev_ms[batch]
+    # K1 at the bench shape of phase 2: the search launch and the spin
+    # passes apart, beside torch.fft.fft over all bins of the same rows
+    k1_args, iq, _ = k1_inputs(dev)
+    k1_dev, per_call, by_name = kernels_device_ms(
+        lambda: carrier_cuda.pm_locked_fused(*k1_args), 20)
+    search = {k: v for k, v in by_name.items() if "locked_search_kernel" in k}
+    spin = {k: v for k, v in by_name.items()
+            if "moments_kernel" in k or "emit_kernel" in k}
+    # (the fourth kernel of a call is the wrapper's stack of the window
+    # into one (B, 2) int32 tensor)
+    require(len(search) == 1 and len(spin) == 2 and per_call <= 4.0
+            and not any("dft_kernel" in k or "peak_kernel" in k
+                        for k in by_name),
+            f"K1: {per_call} kernels per call ({sorted(by_name)}), not the "
+            f"search launch and the two spin passes")
+    fft1_dev = calls_device_ms(lambda: torch.fft.fft(iq, dim=-1), 20)[0]
+    checks["pm_locked"].update(
+        device_ms=k1_dev, search_device_ms=sum(search.values()),
+        spin_device_ms=sum(spin.values()), search_library_device_ms=fft1_dev)
+    r = checks["pm_locked"]
+    log(f"phase 12 K1 at {NCHAN} x {iq.shape[1]}, K = {k1_args[3]}: "
+        f"{k1_dev:.4f} ms device time per call in {per_call:.0f} kernels: "
+        + ", ".join(f"{k.split('(')[0]} {v:.4f}" for k, v in by_name.items())
+        + f"; search {r['search_device_ms']:.4f} ms (bound "
+        f"{r['search_bound_ms']:.4f}), torch.fft.fft over all bins "
+        f"{fft1_dev:.4f} ms")
+    del k1_args, iq
     _, args = k9_inputs(dev)
     k9_dev = kernel_device_ms(
         lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1), 5,
@@ -1770,6 +1868,8 @@ def main() -> int:
         require(launches[k] > 0, f"clean regime: kernel {k} never launched")
     require(backends.get("pm") == "cuda" and backends.get("csum") == "cuda",
             "clean regime: pm / csum stage did not run on CUDA")
+    require(backends.get("pm_locked") == "columns",
+            "clean regime: K1 did not search by its column design")
     profile_block(iq, nframes, cfg, "clean")
     del iq
 
@@ -1903,8 +2003,10 @@ def main() -> int:
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
-            **{key: checks[name][key] for key in ("device_ms",
-                                                  "library_device_ms")
+            **{key: checks[name][key] for key in (
+                "device_ms", "library_device_ms", "search_device_ms",
+                "spin_device_ms", "search_bound_ms", "search_library_ms",
+                "search_library_device_ms")
                if key in checks[name]},
         }
         for name in meta

@@ -9,29 +9,42 @@
 // K2 spin_down_launch replaces _spin_kernel (carrier_pallas.py:214,
 //    entry spin_down_fused): the spin-down and emission at a given carrier.
 //
-// What bounds it on the H100: the DFT pass is ~n*K complex MACs per
-// channel (7.3e6 at n = 65536, K = 107: ~1 GFLOP for 128 channels), the
-// spin passes one full-precision sincosf per sample per pass; the bytes
-// are 4 per sample per pass (~34 MB for 128 x 65536).  Neither comes
-// near the card's roofline at these sizes, so launch count and the
-// number of in-flight blocks set the time.  The design keeps every
-// phase exact (integer products reduced mod their period, the two-level
-// reduction c256*(i/256) + c*(i%256) of the JAX package's _lo_ramp),
-// uses the precise sincosf (no fast-math: __sinf/__cosf are wrong at
-// these angles), and splits the cross-sample reductions into a
-// per-chunk partial pass plus a tiny finishing step instead of holding
-// a whole channel in one block:
-//   dft_kernel     grid (bin tiles, B): thread = column l of i = 256h + l,
-//                  inner sum over h with a shared twiddle table, outer
-//                  twiddle per (bin, l), block reduction over l.
-//   peak_kernel    one thread per channel: peak, Quinn, carrier phase step.
-//   moments_kernel grid (chunks, B): partial sums of the five moments
-//                  of the spun samples, in double across threads.
-//   emit_kernel    grid (chunks, B): finishes the moments (every block
-//                  the same way, in the same order), recomputes the spun
+// K1's search takes one of two designs, picked on shape by the wrapper's
+// plan (carrier_cuda.pm_locked_plan); both are followed by the same two
+// spin passes, which K2 runs alone.
+//   "columns", n a multiple of 256 CD_COLS = 8192 (every locked block of
+//     the 250 ksps chain, de-chirped or not): locked_search_kernel, one
+//     512-thread block per channel, the window bins by K9's split (256-point
+//     column DFTs pass by pass, an outer sum over the columns in registers,
+//     twiddles from the W_n^j table), the de-chirp inside the column passes,
+//     then the masked last-max peak and Quinn in the same block.  The row is
+//     read once (4 bytes a sample); ~2·10^6 flop per channel at n = 65536.
+//     Bound on the H100 by latency, not bytes: 8 dependent passes of two
+//     barriers each on one block per SM (128 registers x 512 threads fill
+//     the register file), 0.028-0.032 ms at 128 x 65536, K = 107 against a
+//     0.010 ms bytes bound; splitting a channel's passes over 2, 4 or 8
+//     blocks only added waves (0.040, 0.053, 0.079 ms).
+//   "direct", the other n K1 takes (de-chirped blocks below 8192 samples):
+//     dft_kernel, grid (bin tiles, B): thread = column l of i = 256h + l,
+//     inner sum over h with a shared twiddle table, outer twiddle per (bin,
+//     l), block reduction over l; then peak_kernel, one thread per channel.
+//     The direct n·K sum (8 flop per sample and bin, each row read once
+//     per 16 bins): bound by operations, and small at these n.
+//   moments_kernel grid (chunks, B): partial sums of the five moments of
+//                  the spun samples, in double across threads.
+//   emit_kernel    grid (chunks, B): finishes the moments (every block the
+//                  same way, in the same order), recomputes the spun
 //                  samples and writes int16.  The spun samples are
 //                  recomputed rather than stored: 8 bytes/sample of HBM
 //                  round trip cost more than one more sincosf.
+// The spin passes read 4 bytes a sample twice and write 2, one precise
+// sincosf per sample each (no fast-math: __sinf/__cosf are wrong at these
+// angles); every phase stays exact (integer products reduced mod their
+// period, the two-level reduction c256*(i/256) + c*(i%256) of the JAX
+// package's _lo_ramp).  Measured at 128 x 65536, K = 107 on an H100
+// (utils/kernel_turns.py and chip_smoke.py phase 12, device time): the
+// search 0.028-0.032 ms, the moments 0.032-0.034, the emission
+// 0.037-0.039 of K1's 0.098-0.105 ms.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -398,37 +411,6 @@ static cudaError_t spin_launch(const int32_t* packed, int row_stride,
                                                  flip, dop, samprate,
                                                  stat_stride, bb, stat);
   return cudaGetLastError();
-}
-
-// K1.  packed (B rows of n words, row stride row_stride), iw (B, 2) int32
-// [first1, wlen]; dop: de-chirp rate in cycles/sample^2 (0: none) with
-// chirp its n phasors (NULL when dop == 0); outputs bb (B, n) int16,
-// stat (B, 4) f32 [amp, cn0, freq, peak]; scratch spec (B, K) float2,
-// cyc (B,) f32, mom (B, ceil(n/SPIN_CHUNK), 5) f64.
-extern "C" int pm_locked_launch(const int32_t* packed, int row_stride,
-                                const int32_t* iw, int B, int n, int K,
-                                float samprate, float binsize, int flip,
-                                double dop, const float* chirp, int16_t* bb,
-                                float* stat, float* spec, float* cyc,
-                                double* mom, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nhi = n >> 8;
-  size_t smem = (size_t)(nhi + (DFT_THREADS / 32) * DFT_KT) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((K + DFT_KT - 1) / DFT_KT, B);
-  dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, 2, n, K,
-                                             flip, (const float2*)chirp,
-                                             (float2*)spec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  peak_kernel<<<(B + 127) / 128, 128, 0, s>>>((const float2*)spec, iw, B, K,
-                                              samprate, binsize, stat, cyc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)spin_launch(packed, row_stride, cyc, B, n, samprate, flip, dop,
-                          bb, stat, 4, mom, s);
 }
 
 // K2.  cyc (B,) f32 carrier cycles/sample, dop as for K1; outputs bb
@@ -967,10 +949,14 @@ extern "C" int windowed_dft_launch(const int32_t* packed, long long row_stride,
 // T[(r0 * 16 + h0) * CD_COLS + mc] (16 x 16 x CD_COLS float2); a barrier;
 // stage 2 over h0 for r0 = w into Ys; a barrier.  The caller must be done
 // reading Ys when it calls (the first barrier keeps the writes behind it).
+// chirp: NULL (K9), or K1's n de-chirp phasors, indexed like the row, that
+// rotate each sample before its DFT (dft_columns' rounding, op by op).
 __device__ __forceinline__ void column_dft256_pass(const int32_t* __restrict__ row,
                                                    int C, int m0, int flip,
                                                    const float2* tw256,
-                                                   float2* T, float2* Ys) {
+                                                   float2* T, float2* Ys,
+                                                   const float2* __restrict__ chirp =
+                                                       nullptr) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   // the next pass's columns on their way into the L2: row h = threadIdx.x
   if (m0 + CD_COLS < C && threadIdx.x < 256)
@@ -979,8 +965,15 @@ __device__ __forceinline__ void column_dft256_pass(const int32_t* __restrict__ r
   float2 x[16];
 #pragma unroll
   for (int h1 = 0; h1 < 16; ++h1) {
+    const size_t i = (size_t)C * (16 * h1 + w) + m0 + lane;
     float xr, xi;
-    unpack_iq(row[(size_t)C * (16 * h1 + w) + m0 + lane], flip, xr, xi);
+    unpack_iq(row[i], flip, xr, xi);
+    if (chirp != nullptr) {
+      const float2 d = chirp[i];
+      const float r = __fsub_rn(__fmul_rn(xr, d.x), __fmul_rn(xi, d.y));
+      xi = __fadd_rn(__fmul_rn(xr, d.y), __fmul_rn(xi, d.x));
+      xr = r;
+    }
     x[h1] = make_float2(xr, xi);
   }
   dft16(x);  // x[4 a + b] = Z[a + 4 b]
@@ -1344,4 +1337,149 @@ extern "C" int pm_scan_launch(const int32_t* packed, long long row_stride,
       packed, row_stride, bb0, init, T, n, flip, P, tail, (const float2*)tab,
       csum, stat, tot);
   return (int)cudaGetLastError();
+}
+
+// ---- K1's search for n a multiple of 256 CD_COLS: one launch -----------
+// The K window bins by K9's split i = C h + m (column_dft256_pass,
+// outer_sum_pass with the pass twiddles staged a pass ahead,
+// outer_sum_finish), the de-chirp (chirp non-NULL) rotating the samples
+// inside the column passes, then in the same block the masked last-max
+// peak (a warp shuffle; equal energies keep the larger bin) and Quinn's
+// estimator.  One block of SCAN_THREADS threads per channel (grid B).  The
+// window starts at first1 = iw[2 b] (negative, or within K of n: bins are
+// taken mod n) and is K bins long, CD_BINS a round; wlen = iw[2 b + 1].
+// Writes stat[4 b + 2 .. 3] (freq, peak bin) and cyc[b] as peak_kernel
+// does.
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+    locked_search_kernel(const int32_t* __restrict__ packed, int row_stride,
+                         const int32_t* __restrict__ iw, int n, int K,
+                         int flip, const float2* __restrict__ chirp,
+                         float samprate, float binsize,
+                         const float2* __restrict__ tab,
+                         float* __restrict__ stat, float* __restrict__ cyc) {
+  extern __shared__ float2 smem[];
+  const int C = n >> 8;  // columns of the split, a multiple of CD_COLS
+  float2* Tx = smem;                    // 16 x 16 x CD_COLS stage-1 tile
+  float2* Ys = Tx + 256 * CD_COLS;      // 256 x CD_COLS column DFTs
+  float2* tw256 = Ys + 256 * CD_COLS;   // W_256^j
+  float2* pw = tw256 + 256;             // 2 x CD_BINS pass twiddles
+  float2* spec = pw + 2 * CD_BINS;      // K window bins
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int32_t* row = packed + (size_t)b * row_stride;
+  const int first1 = iw[2 * b];
+
+  // W_256^j = W_n^{C j}: the table holds the same double value rounded
+  if (tid < 256) tw256[tid] = __ldg(tab + C * tid);
+  for (int k0 = 0; k0 < K; k0 += CD_BINS) {
+    __syncthreads();  // tw256 is in place; the last round's readers of pw are done
+    const int u0 = (int)(((long long)first1 + k0 + warp) % n + n) % n;
+    float2 acc[CD_NBW];
+#pragma unroll
+    for (int j = 0; j < CD_NBW; ++j) acc[j] = make_float2(0.0f, 0.0f);
+    // the pass twiddles, double-buffered in pw as in pm_scan_kernel
+    const int sw = tid / CD_NBW, sj = tid % CD_NBW;
+    const int su0 = (int)(((long long)first1 + k0 + sw) % n + n) % n;
+    const int sd = (int)((32LL * su0) % n);  // sbase's step per pass
+    int sbase = 0;
+    if (tid < CD_BINS) pw[tid] = pass_twiddle(tab, n, 0, sj, 0);
+    for (int p = 0; p < C / CD_COLS; ++p) {
+      float2 nxt = make_float2(0.0f, 0.0f);
+      const bool more = tid < CD_BINS && p + 1 < C / CD_COLS;
+      if (more) {
+        sbase += sd;
+        if (sbase >= n) sbase -= n;
+        nxt = pass_twiddle(tab, n, p + 1, sj, sbase);
+      }
+      column_dft256_pass(row, C, CD_COLS * p, flip, tw256, Tx, Ys, chirp);
+      outer_sum_pass(Ys, pw + (p & 1) * CD_BINS + warp * CD_NBW, u0, acc);
+      if (more) pw[((p + 1) & 1) * CD_BINS + tid] = nxt;
+    }
+    outer_sum_finish(tab, n, u0, k0 + warp, K, acc, spec);
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // ---- masked last-max peak + Quinn (warp 0); energies rounded as the
+  //      plain version rounds them
+  const int wlen = iw[2 * b + 1];
+  float best = -INFINITY;
+  int pk = 0;
+  for (int k = lane; k < K; k += 32) {
+    const float2 v = spec[k];
+    const float e = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+    const float m = (k >= 1 && k < wlen + 1) ? e : -1.0f;
+    if (m >= best) {  // ">=": the LAST maximal bin
+      best = m;
+      pk = k;
+    }
+  }
+  last_max(best, pk, 16);
+  if (lane == 0) {
+    const float freq = quinn_freq(spec[pk], spec[min(pk + 1, K - 1)],
+                                  spec[max(pk - 1, 0)], first1 + pk, samprate,
+                                  binsize);
+    stat[4 * b + 2] = freq;
+    stat[4 * b + 3] = (float)(first1 + pk);
+    cyc[b] = __fdiv_rn(freq, samprate);
+  }
+}
+
+// K1.  packed (B rows of n words, row stride row_stride), iw (B, 2) int32
+// [first1, wlen]; dop: de-chirp rate in cycles/sample^2 (0: none) with
+// chirp its n phasors (NULL when dop == 0); outputs bb (B, n) int16,
+// stat (B, 4) f32 [amp, cn0, freq, peak]; scratch cyc (B,) f32, mom (B,
+// ceil(n/SPIN_CHUNK), 5) f64.  The search takes one of two designs, chosen
+// by the wrapper's plan (carrier_cuda.pm_locked_plan):
+//   tab non-NULL ("columns", n a multiple of 256 CD_COLS):
+//     locked_search_kernel with tab (n,) float2 from twiddle_table_launch
+//     and smem the plan's bytes;
+//   tab NULL ("direct"): dft_kernel + peak_kernel with the scratch spec
+//     (B, K) float2 and smem the plan's bytes ((n/256 + 128) float2: the
+//     rows' twiddles and the warps' partial bins).
+// Then the spin passes (moments_kernel, emit_kernel).
+extern "C" int pm_locked_launch(const int32_t* packed, int row_stride,
+                                const int32_t* iw, int B, int n, int K,
+                                float samprate, float binsize, int flip,
+                                double dop, const float* chirp,
+                                const float* tab, int smem, int16_t* bb,
+                                float* stat, float* spec, float* cyc,
+                                double* mom, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (tab != nullptr) {
+    // the block's limit less the 1 KB the plan keeps for static shared
+    // memory (carrier_cuda._SCAN_STATIC_SMEM), once per device
+    static unsigned configured = 0u;  // one bit per device
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 32 || !(configured & (1u << dev))) {
+      err = cudaFuncSetAttribute(locked_search_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 232448 - 1024);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 32) configured |= 1u << dev;
+    }
+    locked_search_kernel<<<B, SCAN_THREADS, smem, s>>>(
+        packed, row_stride, iw, n, K, flip, (const float2*)chirp, samprate,
+        binsize, (const float2*)tab, stat, cyc);
+  } else {
+    err = cudaFuncSetAttribute(
+        dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((K + DFT_KT - 1) / DFT_KT, B);
+    dft_kernel<<<grid, DFT_THREADS, smem, s>>>(packed, row_stride, iw, 2, n, K,
+                                               flip, (const float2*)chirp,
+                                               (float2*)spec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    peak_kernel<<<(B + 127) / 128, 128, 0, s>>>((const float2*)spec, iw, B, K,
+                                                samprate, binsize, stat, cyc);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)spin_launch(packed, row_stride, cyc, B, n, samprate, flip, dop,
+                          bb, stat, 4, mom, s);
 }

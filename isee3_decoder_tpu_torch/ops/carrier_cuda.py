@@ -81,6 +81,20 @@ def spin_down_plain(
     return carrier.emit_baseband(rotated), amp, cn0
 
 
+def _locked_bins(iq: torch.Tensor, first1: torch.Tensor, K: int,
+                 dop: float) -> torch.Tensor:
+    """K1's search bins: the windowed DFT of the de-chirped samples."""
+    search = iq * chirp_table(iq.shape[1], dop, iq.device) if dop else iq
+    return carrier.windowed_dft(search, first1, K)
+
+
+def pm_locked_bins_plain(packed: torch.Tensor, first1: torch.Tensor, K: int,
+                         flip: bool = False, dop: float = 0.0) -> torch.Tensor:
+    """The (B, K) complex64 window bins pm_locked_plain searches: bins
+    first1 .. first1+K-1 (mod n) of the de-chirped row's n-point DFT."""
+    return _locked_bins(_iq_from_packed(packed, flip), first1, K, dop)
+
+
 def pm_locked_plain(
     packed: torch.Tensor,
     first1: torch.Tensor,
@@ -96,8 +110,7 @@ def pm_locked_plain(
     carrier_freq, amp, cn0_db)."""
     iq = _iq_from_packed(packed, flip)
     n = iq.shape[1]
-    search = iq * chirp_table(n, dop, iq.device) if dop else iq
-    S = carrier.windowed_dft(search, first1, K)
+    S = _locked_bins(iq, first1, K, dop)
     freq, _ = carrier.windowed_peak(S, first1, wlen, binsize, samprate)
     extra = chirp_cycles(n, dop, iq.device) if dop else None
     rotated, amp, cn0 = carrier.spin_down(iq, freq, samprate, extra)
@@ -159,10 +172,7 @@ def pm_locked_fused(
         return _put(bb, out), freq, amp, cn0
     _check_packed(packed, out)
     B, n = packed.shape
-    if not 3 <= K <= n:
-        raise ValueError(f"K = {K} window bins out of range 3..{n}")
-    if ((n // 256) + 128) * 8 > _SMEM_MAX:
-        raise ValueError(f"n = {n}: twiddle table exceeds shared memory")
+    plan = pm_locked_plan(n, K)
     dev = packed.device
     iw = torch.stack([first1, wlen], dim=1).to(device=dev,
                                                 dtype=torch.int32).contiguous()
@@ -171,20 +181,25 @@ def pm_locked_fused(
     bb = out if out is not None else torch.empty((B, n), dtype=torch.int16,
                                                  device=dev)
     stat = torch.empty((B, 4), dtype=torch.float32, device=dev)
-    spec = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
     cyc = torch.empty((B,), dtype=torch.float32, device=dev)
     mom = _moment_scratch(B, n, dev)
     chirp = chirp_table(n, dop, dev) if dop else None
+    columns = plan["design"] == "columns"
+    spec = None if columns else torch.empty((B, K, 2), dtype=torch.float32,
+                                            device=dev)
     err = _kernels.lib().pm_locked_launch(
         packed.data_ptr(), packed.stride(0), iw.data_ptr(), B, n, K,
         float(np.float32(samprate)), float(np.float32(binsize)), int(flip),
         float(dop), None if chirp is None else chirp.data_ptr(),
-        bb.data_ptr(), stat.data_ptr(), spec.data_ptr(), cyc.data_ptr(),
+        twiddle_table(n, dev).data_ptr() if columns else None, plan["smem"],
+        bb.data_ptr(), stat.data_ptr(),
+        None if spec is None else spec.data_ptr(), cyc.data_ptr(),
         mom.data_ptr(), _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "pm_locked_launch")
     _kernels.count_launch("pm_locked")
     _kernels.note_backend("pm", "cuda")
+    _kernels.note_backend("pm_locked", plan["design"])
     return bb, stat[:, 2], stat[:, 0], stat[:, 1]
 
 
@@ -463,6 +478,42 @@ def pm_scan_plan(n: int, K: int) -> dict:
             "columns": n // 256, "columns_per_pass": CD_COLS,
             "passes": n // 256 // CD_COLS, "bins_per_warp": CD_NBW,
             "bins_per_round": bins, "rounds": -(-K // bins), "smem": smem}
+
+
+DFT_THREADS = 256  # threads of a "direct" K1 dft_kernel block (csrc/carrier.cu)
+DFT_KT = 16  # bins of a "direct" dft_kernel block
+
+
+@functools.lru_cache(maxsize=64)
+def pm_locked_plan(n: int, K: int) -> dict:
+    """K1's launch plan for rows of n samples and K window bins
+    (csrc/carrier.cu ``pm_locked_launch``), chosen on shape between two
+    hand-written searches, each followed by the same spin passes:
+
+    - ``"columns"`` for n a multiple of 256·CD_COLS = 8192 (every locked
+      block of the 250 ksps chain and of the de-chirped blocks):
+      ``locked_search_kernel``, K9's split and K9's plan (pm_scan_plan:
+      one block of 512 threads per channel, passes of 32 columns, rounds
+      of 128 bins, the same shared memory), the peak in the same launch;
+    - ``"direct"`` for the other n K1 takes (de-chirped blocks below 8192
+      samples, e.g. the narrowband chain's n = 4096 with a Doppler rate):
+      ``dft_kernel`` (grid of ⌈K/16⌉ bin tiles × B, 256 threads, the
+      direct sum over the n/256 rows of each column) and ``peak_kernel``.
+
+    K1 takes n a positive multiple of 256 and 3 <= K <= n within one
+    block's shared memory; anything else raises."""
+    if n <= 0 or n % 256 != 0:
+        raise ValueError(f"n = {n} must be a positive multiple of 256")
+    if not 3 <= K <= n:
+        raise ValueError(f"K = {K} window bins out of range 3..{n}")
+    if n % (256 * CD_COLS) == 0:
+        return {**pm_scan_plan(n, K), "design": "columns"}
+    smem = (n // 256 + (DFT_THREADS // 32) * DFT_KT) * 8
+    if smem > _SMEM_MAX:
+        raise ValueError(f"n = {n}: twiddle table exceeds shared memory")
+    return {"design": "direct", "threads": DFT_THREADS, "rows": n // 256,
+            "passes": 1, "bins_per_round": DFT_KT, "rounds": -(-K // DFT_KT),
+            "smem": smem}
 
 
 def pm_scan_locked_fused(

@@ -1,5 +1,5 @@
-"""Time kernels K8, K5 and K9 of one checkout of the port, for comparing
-two trees in turns on one card.
+"""Time kernels K1, K8, K5 and K9 of one checkout of the port, for
+comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
 
@@ -16,13 +16,21 @@ tree), builds its kernels, and prints one JSON line:
   the threshold block's batch: event ms and device ms per launch;
 - K9 (``carrier_cuda.pm_scan_locked_fused``, the pm scan in one launch)
   at the bench shape, 128 x 32 x 65,536, K = 107, on a clean block
-  (noise 2500): event ms and device ms per launch.
+  (noise 2500): event ms and device ms per launch;
+- K1 (``carrier_cuda.pm_locked_fused``, one locked pm block) at the bench
+  shape, 128 x 65,536, K = 107, on a clean block: event ms and device ms
+  per call, and the device ms of each kernel it launches (the search and
+  the spin passes apart).
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
 K5: bit for bit; K9: ok lanes and locks equal, frequency and centre
-within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB).  Needs a CUDA card; the card's nvidia-smi name and power
-limit are in the line.
+within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB; K1:
+frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within 1e-2
+dB, baseband within 1 LSB).  Every CUDA-event time is taken before the
+first torch.profiler session, which slows every later launch of the
+process.  Needs a CUDA card; the card's nvidia-smi name and power limit
+are in the line.
 """
 
 from __future__ import annotations
@@ -54,9 +62,9 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps: int) -> tuple[float, float, list[str]]:
+def _device_ms(torch, fn, reps: int) -> tuple[float, float, dict]:
     """(device ms per call summed over every kernel, kernels per call,
-    the kernels' names) under torch.profiler."""
+    device ms per call of each kernel by name) under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -66,17 +74,22 @@ def _device_ms(torch, fn, reps: int) -> tuple[float, float, list[str]]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sum(e.time_range.end - e.time_range.start for e in ev)
-    return spans / reps / 1e3, len(ev) / reps, sorted({e.name for e in ev})
+    by_name: dict[str, float] = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            count += 1
+    return sum(by_name.values()), count / reps, by_name
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True, help="checkout to import")
     ap.add_argument("--label", default=None)
-    args = ap.parse_args()
-    sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
+    args_cli = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args_cli.tree).resolve()))
 
     import numpy as np
     import torch
@@ -96,7 +109,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     _kernels.lib()
-    out = {"label": args.label or args.tree, "card": _card(),
+    out = {"label": args_cli.label or args_cli.tree, "card": _card(),
            "package": str(pathlib.Path(_kernels.__file__).parent)}
 
     # ---- K8 at the narrowband path's shape
@@ -131,14 +144,11 @@ def main() -> int:
     def fft():
         torch.fft.fft(x, dim=-1)
 
-    # event times first: a profiler session slows every later launch
-    ms, fft_ms = _event_ms(torch, k8, 50), _event_ms(torch, fft, 50)
-    dms, per_call, names = _device_ms(torch, k8, 50)
-    fdms, fper_call, _ = _device_ms(torch, fft, 50)
-    out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8, "rel_err": rel,
-                 "ms": ms, "device_ms": dms, "kernels_per_call": per_call,
-                 "kernels": names, "fft_ms": fft_ms, "fft_device_ms": fdms,
-                 "fft_kernels_per_call": fper_call}
+    # (name, function, reps, record): every event time is taken first, in
+    # this order, then every device time
+    timed = []
+    out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8, "rel_err": rel}
+    timed += [("k8", k8, 50, out["k8"]), ("fft", fft, 50, out["k8"])]
 
     # ---- K5 over a whole K = 24 row phase at the threshold block's batch
     B = 10
@@ -160,12 +170,9 @@ def main() -> int:
     def k5():
         vc.cycle_a(mk, syms, code, rowb, base, da)
 
-    ms = _event_ms(torch, k5, 20)
-    dms, per_call, names = _device_ms(torch, k5, 20)
-    out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5,
-                 "ms": ms, "device_ms": dms, "kernels_per_call": per_call,
-                 "kernels": names}
-    del mk, mp, dk, dp, da, m0
+    out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5}
+    timed.append(("k5", k5, 20, out["k5"]))
+    del dk, dp, m0
 
     # ---- K9 at the bench shape
     B, T = 128, 32
@@ -204,14 +211,50 @@ def main() -> int:
     def k9():
         carrier_cuda.pm_scan_locked_fused(*args, tail=1)
 
-    ms = _event_ms(torch, k9, 5)
-    dms, per_call, names = _device_ms(torch, k9, 5)
     out["k9"] = {"shape": f"{B} x {T} x {n}, K = {K}", "ok": ok9,
                  "max_dfreq_hz": float(d[2]), "max_dcn0_db": float(d[1]),
-                 "max_dbaseband_lsb": bb_err, "ms": ms, "device_ms": dms,
-                 "kernels_per_call": per_call, "kernels": names}
+                 "max_dbaseband_lsb": bb_err}
+    timed.append(("k9", k9, 5, out["k9"]))
+
+    # ---- K1 at the bench shape: one clean block of locked carriers
+    gen.manual_seed(5)
+    iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
+                              symrate=1024.0, noise_std=2500.0)
+    raw1 = to_raw_int16(iq)
+    del iq
+    carry = carrier.PMCarry(search_center=freqs,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    k1_args = (carrier.pack_raw(raw1), first - 1, last - first, K,
+               cfg.samprate, cfg.actual_binsize)
+    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*k1_args)
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*k1_args)
+    err1 = int((bb_k.int() - bb_p.int()).abs().max())
+    ok1 = (float((f_k - f_p).abs().max()) <= 5e-3
+           and bool(torch.allclose(a_k, a_p, rtol=1e-5, atol=0))
+           and float((c_k - c_p).abs().max()) <= 1e-2 and err1 <= 1)
+    out["k1"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok1,
+                 "max_dfreq_hz": float((f_k - f_p).abs().max()),
+                 "max_dbaseband_lsb": err1,
+                 "design": _kernels.backend_used.get("pm_locked")}
+    del bb_k, bb_p
+
+    def k1():
+        carrier_cuda.pm_locked_fused(*k1_args)
+
+    timed.append(("k1", k1, 20, out["k1"]))
+
+    for name, fn, reps, rec in timed:
+        rec["fft_ms" if name == "fft" else "ms"] = _event_ms(torch, fn, reps)
+    for name, fn, reps, rec in timed:
+        dms, per_call, by_name = _device_ms(torch, fn, reps)
+        if name == "fft":
+            rec.update(fft_device_ms=dms, fft_kernels_per_call=per_call)
+        else:
+            rec.update(device_ms=dms, kernels_per_call=per_call,
+                       kernels=by_name)
     print(json.dumps(out), flush=True)
-    return 0 if ok8 and ok5 and ok9 else 1
+    return 0 if ok8 and ok5 and ok9 and ok1 else 1
 
 
 if __name__ == "__main__":

@@ -57,28 +57,39 @@ def _raw(dev, B: int, cfg: carrier.PMConfig, seed: int, nblocks: int = 1):
     return to_raw_int16(iq), freqs
 
 
-@pytest.mark.parametrize("B,flip,doppler", [(5, False, 0.0), (8, True, 0.0),
-                                             (8, False, 50.0)])
-def test_k1_k2_match_plain(dev, B, flip, doppler):
-    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+@pytest.mark.parametrize("samprate,binsize,B,flip,doppler,design", [
+    (32768.0, 4.0, 5, False, 0.0, "columns"),     # n = 8192
+    (32768.0, 4.0, 8, True, 0.0, "columns"),
+    (32768.0, 4.0, 8, False, 50.0, "columns"),
+    (250000.0, 4.0, 133, True, -30.0, "columns"),  # n = 65,536, 133 > 132 SMs
+    (32768.0, 8.0, 7, False, 50.0, "direct"),      # n = 4096
+    (32768.0, 8.0, 6, True, -40.0, "direct"),
+])
+def test_k1_k2_match_plain(dev, samprate, binsize, B, flip, doppler, design):
+    cfg = carrier.PMConfig(samprate=samprate, binsize=binsize,
+                           search_width=100.0)
     dop = doppler / cfg.samprate**2
     raw, freqs = _raw(dev, B, cfg, seed=B)
     packed = carrier.pack_raw(raw)
-    carry = carrier.PMCarry(search_center=freqs, cn0=torch.full_like(freqs, 60.0))
+    # swapping I and Q mirrors the spectrum: the carrier sits at -f
+    f = (-1.0 if flip else 1.0) * freqs
+    carry = carrier.PMCarry(search_center=f, cn0=torch.full_like(f, 60.0))
     first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    args = (packed, first - 1, last - first, carrier._window_bins(cfg),
-            cfg.samprate, cfg.actual_binsize, False, dop)
+    K = carrier._window_bins(cfg)
+    args = (packed, first - 1, last - first, K, cfg.samprate,
+            cfg.actual_binsize, flip, dop)
     n0 = _kernels.LAUNCHES["pm_locked"]
     bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["pm_locked"] == n0 + 1
+    assert _kernels.backend_used["pm_locked"] == design
+    assert carrier_cuda.pm_locked_plan(cfg.fftsize, K)["design"] == design
     bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
     torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
     assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
 
-    # swapping I and Q mirrors the spectrum: the carrier sits at -f
     f = (-1.0 if flip else 1.0) * (freqs + 0.125)
     bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, cfg.samprate,
                                                   flip, dop)
@@ -87,6 +98,54 @@ def test_k1_k2_match_plain(dev, B, flip, doppler):
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
     assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("dop", [0.0, 40.0 / 32768.0**2])
+def test_k1_windows_that_wrap_match_plain(dev, dop):
+    """Carriers next to 0 Hz, searched by windows that start below bin 0
+    or run past bin n (the "columns" design takes bins mod n): the same
+    peak, frequency, amplitude, C/N0 and baseband as the plain version."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0)
+    n, K = cfg.fftsize, 53
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    frames = torch.as_tensor(random_frames(np.random.default_rng(17), 4),
+                             device=dev)[:, None, :]
+    freqs = torch.tensor([6.0, -9.0, 20.0, -30.0], device=dev)
+    raw = to_raw_int16(synthesize_iq_device(frames, freqs, gen, n,
+                                            samprate=cfg.samprate,
+                                            symrate=512.0, noise_std=300.0))
+    first1 = torch.tensor([-20, n - 30, -10, n - 40], device=dev)
+    wlen = torch.full((4,), K - 2, device=dev)
+    args = (carrier.pack_raw(raw), first1, wlen, K, cfg.samprate,
+            cfg.actual_binsize, False, dop)
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
+    torch.cuda.synchronize()
+    assert _kernels.backend_used["pm_locked"] == "columns"
+    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
+    torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
+    # found the carriers (the de-chirp of an unchirped tone spreads it)
+    assert float((f_p - freqs).abs().max()) < (8.0 if dop else 2.0)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
+    assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 12288, 65536])
+def test_k1_wrapper_reports_the_plans_design(dev, n):
+    """The design pm_locked_fused records (backend_used["pm_locked"]) is
+    the one pm_locked_plan picks for the shape."""
+    B, K = 3, 53
+    raw = torch.randint(-3000, 3000, (B, 2 * n), device=dev,
+                        dtype=torch.int32).to(torch.int16)
+    first1 = torch.full((B,), 100, device=dev)
+    carrier_cuda.pm_locked_fused(carrier.pack_raw(raw), first1,
+                                 torch.full((B,), K - 2, device=dev), K,
+                                 32768.0, 32768.0 / n)
+    torch.cuda.synchronize()
+    want = "columns" if n % 8192 == 0 else "direct"
+    assert carrier_cuda.pm_locked_plan(n, K)["design"] == want
+    assert _kernels.backend_used["pm_locked"] == want
 
 
 @pytest.mark.parametrize("T,B,n,tail", [(3, 5, 1000, 2), (2, 130, 4096, 0)])

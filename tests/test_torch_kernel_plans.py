@@ -295,10 +295,10 @@ def test_k8_eighth_roots_match_the_table(n):
 
 # ---------------------------------------------------------------- K9 plan
 
-@pytest.mark.parametrize("n,K", [(n, K) for n in (8192, 16384, 65536, 131072)
-                                 for K in (53, 107)])
-def test_k9_plan_covers_every_column_residue_and_bin_once(n, K):
-    plan = carrier_cuda.pm_scan_plan(n, K)
+def _check_column_plan(plan, n, K):
+    """The column-DFT plan of K9 (and of K1's "columns" design) loads
+    every sample once, computes every (column, residue) once and gives
+    every bin one (round, warp, slot)."""
     assert plan["smem"] + 1024 <= SMEM_MAX
     threads, warps, cpp = (plan["threads"], plan["warps"],
                            plan["columns_per_pass"])
@@ -323,6 +323,12 @@ def test_k9_plan_covers_every_column_residue_and_bin_once(n, K):
                     dtype=np.int64)
     np.add.at(seen, (rnd, rest % warps, rest // warps), 1)
     assert seen.sum() == K and seen.max() == 1
+
+
+@pytest.mark.parametrize("n,K", [(n, K) for n in (8192, 16384, 65536, 131072)
+                                 for K in (53, 107)])
+def test_k9_plan_covers_every_column_residue_and_bin_once(n, K):
+    _check_column_plan(carrier_cuda.pm_scan_plan(n, K), n, K)
 
 
 def test_k9_plan_covers_what_the_gate_admits():
@@ -350,14 +356,16 @@ def _dft16_regs(x):
     return y.reshape(x.shape)
 
 
-def _k9_columns(iq, first1, K):
+def _k9_columns(iq, first1, K, chirp=None):
     """torch mirror of pm_scan_kernel's window bins (column_dft256_pass,
     outer_sum_pass, outer_sum_finish) in complex128: per pass of 32
     columns the stage-1 tile T[r0][h0][lane] turned by W_256^{r0 h0}, the
     stage-2 column DFTs Ys[r][lane], then per warp w and slot j the bin
     k0 + w + 16 j summed over the passes with twiddles tab[base + 512 p j]
     from the W_n^j table, the lane factor tab[(u lane) mod n] after the
-    last pass, and the sum over the lanes."""
+    last pass, and the sum over the lanes.  ``chirp`` (n,): K1's de-chirp
+    phasors, indexed like the row (i = C h + m), rotating each sample as
+    the column pass loads it."""
     B, n = iq.shape
     C = n // 256
     tab = torch.exp(-2j * torch.pi * torch.arange(n, dtype=torch.float64) / n)
@@ -369,7 +377,10 @@ def _k9_columns(iq, first1, K):
     warp, slot = torch.arange(16)[:, None], torch.arange(8)[None, :]
     out = torch.zeros((B, K), dtype=torch.complex128)
     for b in range(B):
-        x = torch.as_tensor(iq[b]).reshape(256, C)  # [h][m]
+        x = torch.as_tensor(iq[b])
+        if chirp is not None:
+            x = x * chirp
+        x = x.reshape(256, C)  # [h][m]
         for k0 in range(0, K, 128):
             u0 = (int(first1[b]) + k0 + warp[:, 0]) % n  # (16,)
             d = (32 * u0) % n
@@ -421,4 +432,73 @@ def test_k9_column_split_matches_fft_and_plain(n, K, first):
     assert (got - fft).abs().max() <= 1e-5 * fft.abs().max()
     plain = carrier_cuda.windowed_dft_raw_plain(
         carrier.pack_raw(torch.as_tensor(raw)), first1, K)
+    assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
+
+
+# ---------------------------------------------------------------- K1 plan
+
+@pytest.mark.parametrize("n,K", [(n, K) for n in (8192, 16384, 65536, 131072)
+                                 for K in (3, 53, 107, 129, 203)])
+def test_k1_plan_covers_every_column_residue_and_bin_once(n, K):
+    """K1's "columns" design is K9's split at K9's plan: every sample
+    loaded once, every (column, residue) computed once, every bin of the
+    window in one (round, warp, slot)."""
+    plan = carrier_cuda.pm_locked_plan(n, K)
+    assert plan["design"] == "columns"
+    assert plan["rounds"] == -(-K // 128) and plan["passes"] == n // 8192
+    _check_column_plan(plan, n, K)
+
+
+@pytest.mark.parametrize("n", [768, 4096, 18944])
+def test_k1_plan_picks_direct_below_the_column_split(n):
+    """n a multiple of 256 but not of 8192 (the de-chirped narrowband
+    blocks) takes the direct sum: ⌈K/16⌉ bin tiles of 256 threads, each
+    summing its column over the n/256 rows; shared memory holds those
+    rows' twiddles and the warps' partial bins."""
+    for K in (3, 53, 107):
+        plan = carrier_cuda.pm_locked_plan(n, K)
+        assert plan["design"] == "direct"
+        assert plan["threads"] == 256 and plan["rows"] == n // 256
+        assert plan["rounds"] * plan["bins_per_round"] >= K
+        assert (plan["rounds"] - 1) * plan["bins_per_round"] < K
+        assert plan["smem"] == (n // 256 + 128) * 8 <= SMEM_MAX
+
+
+@pytest.mark.parametrize("n,K,match", [
+    (1000, 53, "multiple of 256"), (0, 53, "multiple of 256"),
+    (8192, 2, "out of range"), (4096, 4097, "out of range"),
+    ((1 << 23) - 256, 53, "shared memory"),
+])
+def test_k1_plan_refuses_what_k1_does_not_take(n, K, match):
+    with pytest.raises(ValueError, match=match):
+        carrier_cuda.pm_locked_plan(n, K)
+
+
+@pytest.mark.parametrize("n,K,first,doppler", [
+    (8192, 53, [-20, 8192 - 30, 230], 40.0),   # below 0, past n, mod 256
+    (16384, 107, [-5, 16384 - 100], -25.0),    # a falling chirp
+    (8192, 203, [-150, 8192 - 120], 0.0),      # two rounds, no de-chirp
+])
+def test_k1_column_split_matches_fft_and_plain(n, K, first, doppler):
+    """The "columns" design's bins (K9's split with the de-chirp rotating
+    each loaded sample, windows wrapping below 0 and past n) give
+    torch.fft.fft's bins of the de-chirped row and pm_locked_plain's
+    bins, within 1e-5 of the largest bin (complex128 mirror; the card
+    tests the float32 rounding)."""
+    assert carrier_cuda.pm_locked_plan(n, K)["design"] == "columns"
+    samprate = 32768.0
+    dop = doppler / samprate**2
+    rng = np.random.default_rng(n + K)
+    raw = rng.integers(-3000, 3000, (len(first), 2 * n)).astype(np.int16)
+    first1 = torch.tensor(first, dtype=torch.int64)
+    iq = raw[:, 0::2].astype(np.float64) + 1j * raw[:, 1::2]
+    chirp = (carrier_cuda.chirp_table(n, dop, torch.device("cpu"))
+             .to(torch.complex128) if dop else None)
+    got = _k9_columns(iq, first1.numpy(), K, chirp)
+    row = torch.as_tensor(iq) * (chirp if dop else 1.0)
+    idx = (first1[:, None] + torch.arange(K)) % n
+    fft = torch.gather(torch.fft.fft(row), 1, idx)
+    assert (got - fft).abs().max() <= 1e-5 * fft.abs().max()
+    plain = carrier_cuda.pm_locked_bins_plain(
+        carrier.pack_raw(torch.as_tensor(raw)), first1, K, dop=dop)
     assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
