@@ -76,13 +76,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # FMA counted as two operations
 # INT32 lanes: 132 SMs x 64 x 1.98 GHz boost clock
 I32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations per ACS pair (two AND+POPC+AND+XOR parities, symbol
-# selects and add, 510-mt, four adds, two compares, two selects: the count
-# of the first K5/K6 in csrc/viterbi.cu, kept so that the bound stays the
-# same for every design) and per Fano micro-step in csrc/fano.cu (forward
-# look, threshold update, encoder step with two parities, metric selects,
-# bookkeeping) — address arithmetic excluded
-ACS_OPS_PER_PAIR = 20
+# int16 operations on the same lanes packed two to a word (VIADD.16x2,
+# VIMNMX.S16x2)
+I16X2_OPS_PER_S = 2 * I32_OPS_PER_S
+# int16 operations an ACS pair of the fused Viterbi (K5, K6) needs: four
+# adds and two compare-selects, whose compares are the decisions; the
+# branch metrics of a step come from its symbols and a table of parities,
+# counted as none.  Per Fano micro-step in csrc/fano.cu (forward look,
+# threshold update, encoder step with two parities, metric selects,
+# bookkeeping) int32 operations, address arithmetic excluded
+ACS_OPS_PER_PAIR = 6
 FANO_OPS_PER_STEP = 30
 # integer operations per butterfly of K10 in csrc/viterbi_acs.cu (two
 # AND+POPC+AND+XOR branch bits, two symbol selects, the adjust, the
@@ -93,6 +96,12 @@ ACS10_OPS_PER_BUTTERFLY = 22
 # torch.profiler sessions a device-time reading may take: a session on
 # the card now and then records none of its kernels
 PROFILE_TRIES = 3
+# calls of fn a session makes under the profiler's warm-up (tracing on,
+# events dropped) before the counted ones: the first launches after the
+# tracing starts may go unrecorded
+PROFILE_WARMUP = 5
+# calls of one kernel counted in a phase-12 session
+PROFILE_CALLS = 20
 
 # narrowband path (phase 10): the reference's -r option at 32,768 sps,
 # binsize 8 -> n = 4096, below the 8192-sample chunk of the fused kernels,
@@ -620,7 +629,7 @@ def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
                                                       da), 2),
             library_ms=None,
             **bound(B * (4 * n + rowb * n // 8) + sa.numel() * 4 + B * 4,
-                    B * rowb * (n // 2) * ACS_OPS_PER_PAIR, I32_OPS_PER_S),
+                    B * rowb * (n // 2) * ACS_OPS_PER_PAIR, I16X2_OPS_PER_S),
         ),
         "viterbi_b": dict(
             max_abs_err=0,
@@ -630,7 +639,7 @@ def viterbi_cycle_check(dev, B: int, seed: int) -> dict:
             library_ms=None,
             **bound(B * (4 * n + (w - rowb) * n // 8 + (1 << rowb) * 4)
                     + sb.numel() * 4, B * (w - rowb) * (n // 2)
-                    * ACS_OPS_PER_PAIR, I32_OPS_PER_S),
+                    * ACS_OPS_PER_PAIR, I16X2_OPS_PER_S),
         ),
     }
     a, b_ = rec["viterbi_a"], rec["viterbi_b"]
@@ -1467,28 +1476,45 @@ def check_viterbi_acs(dev, batch: int) -> dict:
     return {"viterbi_acs": rec}
 
 
-def kernel_device_ms(fn, reps: int, name: str) -> float:
-    """Mean device milliseconds of the kernels whose name holds ``name``
-    over reps calls of fn (after one warm call), from torch.profiler
-    (which may miss a few of the first launches of a window)."""
+def profiled_kernels(fn, reps: int, name: str = "") -> list:
+    """The kernels whose name holds ``name`` that torch.profiler records
+    over reps calls of fn (after one warm call), as (name, device ms):
+    each session runs PROFILE_WARMUP calls in the schedule's warm-up,
+    then the reps counted ones, and a session that records fewer than
+    reps // 2 such kernels is made again, up to PROFILE_TRIES times."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        got: list = []
+
+        def ready(prof):
+            got.extend((e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and name in e.name)
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=PROFILE_WARMUP,
+                                       active=reps, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(PROFILE_WARMUP + reps):
                 fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and name in e.name]
-        if len(spans) >= reps // 2:
-            break
-    require(len(spans) >= reps // 2, f"profiler saw {len(spans)} of {reps} "
-            f"{name} launches in each of {PROFILE_TRIES} sessions")
-    return sum(spans) / len(spans) / 1e3
+                torch.cuda.synchronize()
+                prof.step()
+        if len(got) >= reps // 2:
+            return got
+    fail(f"profiler saw {len(got)} {name or 'kernel'} launches in {reps} calls "
+         f"in each of {PROFILE_TRIES} sessions")
+
+
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over the launches torch.profiler records in reps calls of fn."""
+    spans = [ms for _, ms in profiled_kernels(fn, reps, name)]
+    return sum(spans) / len(spans)
 
 
 def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
@@ -1502,26 +1528,10 @@ def calls_device_ms(fn, reps: int) -> tuple[float, float, list[str]]:
 def kernels_device_ms(fn, reps: int) -> tuple[float, float, dict]:
     """calls_device_ms with the device milliseconds per call of each
     kernel by name: (total ms per call, kernels per call, {name: ms})."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if len(ev) >= reps // 2:
-            break
-    require(len(ev) >= reps // 2, f"profiler saw {len(ev)} kernels in {reps} "
-            f"calls in each of {PROFILE_TRIES} sessions")
+    ev = profiled_kernels(fn, reps)
     by_name: dict[str, float] = {}
-    for e in ev:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    for kname, ms in ev:
+        by_name[kname] = by_name.get(kname, 0.0) + ms / reps
     return sum(by_name.values()), len(ev) / reps, by_name
 
 
@@ -1563,9 +1573,9 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
                          device=dev)
         dev_ms[B] = (
             kernel_device_ms(lambda: vc.cycle_a(m, sa, code, rowb, base, da),
-                             10, "viterbi_a_kernel"),
-            kernel_device_ms(lambda: vc.cycle_b(m, sb, code, w - rowb, db), 10,
-                             "viterbi_b_kernel"))
+                             PROFILE_CALLS, "viterbi_a_kernel"),
+            kernel_device_ms(lambda: vc.cycle_b(m, sb, code, w - rowb, db),
+                             PROFILE_CALLS, "viterbi_b_kernel"))
         del m, da, db
     checks["viterbi_a"]["device_ms"], checks["viterbi_b"]["device_ms"] = \
         dev_ms[batch]
@@ -1598,8 +1608,8 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
     del k1_args, iq
     _, args = k9_inputs(dev)
     k9_dev = kernel_device_ms(
-        lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1), 5,
-        "pm_scan_kernel")
+        lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1),
+        PROFILE_CALLS, "pm_scan_kernel")
     checks["pm_scan"]["device_ms"] = k9_dev
     del args
     log(f"phase 12 device time (torch.profiler): K8 {k8_dev:.5f} ms in one "
@@ -1993,12 +2003,18 @@ def main() -> int:
         "viterbi_acs": ("viterbi_acs.cu",
                         "isee3_decoder_tpu/ops/viterbi_pallas.py:39"),
     }
+    # kernels whose design was rebuilt for the card, as the line names it
+    designs = {
+        "viterbi_b": "register stages: j steps by warp shuffles, decisions "
+                     "by lane ballots, the row as int16 pairs",
+    }
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": src + meta[name][0],
             "replaces": meta[name][1],
+            **({"design": designs[name]} if name in designs else {}),
             "launches": launches[name],
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -88,9 +88,9 @@ _SIGNATURES = {
     "viterbi_a_launch": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P),
     # metrics, syms, dec, dec_bstride, dec_tstride, mins, B, rowb, colb,
-    # nsteps, q1, q2, g1flip, g2flip, stream
+    # nsteps, q1, q2, g1flip, g2flip, smem, stream
     "viterbi_b_launch": (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P),
+                         _I, _I, _P),
     # wide, nwords, taps, twid, M, P, TS, oversample, nsamp, out, smem_bytes,
     # stream
     "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _L, _P, _I, _P),

@@ -12,10 +12,13 @@
 //   a0 = lo+mt, a1 = hi+mm, a2 = lo+mm, a3 = hi+mt,
 //   d0 = a0 > a1 at lo, d1 = a2 > a3 at hi (strict: ties keep a0 / a2),
 //   lo' = d0 ? a1 : a0,  hi' = d1 ? a3 : a2,
-// in int32, stored back as int16 (the per-cycle renormalization keeps
-// the values in range).  The branch bits are flip ^ parity(p & mask) of
-// the position p, one __popc each; the TPU kernel B read them from
-// precomputed planes because its vector unit had no popcount.
+// in int32 (K5) or int16 halves (K6), stored back as int16 (the
+// per-cycle renormalization keeps the values in range).  The branch bits
+// are flip ^ parity(p & mask) of the position p; both kernels split the
+// parity by the bits of p (those fixed for a thread's item, those of its
+// registers) and read the metric from a small table in shared memory,
+// where the TPU kernel B read precomputed planes because its vector unit
+// had no popcount.
 // Decision words follow the contract of ops/viterbi_inplace.py: bit
 // (p>>7)&31 of word (p>>12)*128 + (p&127) of the step's plane.
 //
@@ -32,11 +35,12 @@
 //   K5: one block per (frame, tile of 256 columns), all 2^ROWB rows in
 //     shared memory as int16 pairs; the steps in radix stages of up to
 //     three in registers (see a_stage below).
-//   K6: one block per (frame, row): the whole row (2^COLB int32, 128 KB
-//     of dynamic shared memory) plus its decision bitmap (4 KB), one
-//     thread per pair; decisions land in the bitmap by shared atomicOr
-//     and go to device memory as whole words after each step.  Each
-//     block also writes its row's minimum for the next cycle's base.
+//   K6: one block per (frame, row), the row in shared memory as int16
+//     pairs (64 KB at COLB = 15, two blocks an SM); the steps in up to
+//     three register stages on int16 pairs, the j steps by warp shuffles,
+//     decisions by lane ballots (see b_stage below): ~6 instructions a
+//     pair, under the 20 counted above.  Each block also writes its row's
+//     minimum for the next cycle's base.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -45,22 +49,12 @@
 
 namespace cg = cooperative_groups;
 
-#define VB_THREADS 1024
-
 // rotr of the w-bit value x by t (unsigned shifts: the bits shifted out
 // above w are masked away)
 __device__ __forceinline__ unsigned rotr_w(unsigned x, int t, int w) {
   t %= w;
   const unsigned mask = (1u << w) - 1u;
   return t == 0 ? x : (((x >> t) | (x << (w - t))) & mask);
-}
-
-__device__ __forceinline__ int branch_metric(unsigned p, unsigned m1,
-                                             unsigned m2, int g1flip,
-                                             int g2flip, int s0, int s1) {
-  const int b0 = (__popc(p & m1) & 1) ^ g1flip;
-  const int b1 = (__popc(p & m2) & 1) ^ g2flip;
-  return (b0 ? 255 - s0 : s0) + (b1 ? 255 - s1 : s1);
 }
 
 // ---- K5: the row-pairing steps of a cycle, in radix stages -------------
@@ -359,69 +353,307 @@ __global__ void __cluster_dims__(VA_CL, 1, 1)
   cl.sync();  // no tile leaves while another CTA reads it
 }
 
-// K6: steps rowb..rowb+nsteps-1 (column pairing) on one row of one frame.
-__global__ void __launch_bounds__(VB_THREADS) viterbi_b_kernel(int16_t* __restrict__ metrics,
-                                 const int32_t* __restrict__ syms,
-                                 int32_t* __restrict__ dec,
-                                 long long dec_bstride, long long dec_tstride,
-                                 int32_t* __restrict__ mins, int rowb,
-                                 int colb, int nsteps, unsigned q1,
-                                 unsigned q2, int g1flip, int g2flip) {
-  extern __shared__ int32_t sm[];  // [ncols] row values, then [nw] bitmap
-  __shared__ int32_t wmin[VB_THREADS / 32];
-  const int b = blockIdx.y, R = blockIdx.x;
-  const int w = rowb + colb;
-  const int ncols = 1 << colb;
-  const int nw = ncols >> 5;
-  unsigned* bm = (unsigned*)(sm + ncols);
-  int16_t* mr = metrics + (((size_t)b << rowb) + R) * ncols;
+// ---- K6: the column-pairing steps of a cycle, in register stages -------
+// One block per (frame, row), VB_THREADS threads, two blocks an SM.  The
+// row (2^COLB int16) lies in shared memory as words of the column pairs
+// (c, c+1), at word (c >> 1) ^ j with j = (c >> 7) & 31: the 32 values of
+// j of one column offset fall in 32 banks.  The steps s = COLB-1, COLB-2,
+// ... (pair offset 2^s) run in up to three register stages
+// (viterbi_cuda.cycle_b_plan): A holds the g bits s = COLB-1 .. 12 in
+// registers, then pairs the j bits s = 11 .. 7 across lanes; B holds the
+// li bits 6, 5, 4; C the li bits 3, 2, 1, 0.  A warp takes an item: lane j
+// holds the words (values 2k, 2k+1) at the columns fixed(item) | j << 7 |
+// reg(v) for every v (column bit 0 and the stage's register bits) and
+// runs the stage's steps on them, so the row crosses shared memory once a
+// stage, not once a step.  In a lane step the partner word comes by
+// __shfl_xor_sync and each lane decides its own positions (lo' from a0,
+// a1 at a low lane, hi' from a2, a3 at a high one), so every (step, item,
+// v) decision is one lane ballot: one whole decision word, bit j of word
+// g*128 + li.  No atomics.  The words of a stage wait in shared memory and
+// go out as 16-byte vectors after it.
+// The arithmetic runs on both halves of a word at once: Hopper's
+// VIADD.16x2 for the sums and its DPX min (__vibmin_s16x2, VIMNMX.S16x2),
+// which also reports a <= b per half -- the decision is its negation,
+// so a tie keeps the first operand (a0 at lo, a2 at hi).  int16 sums are
+// exact while they stay below 2^15: a cycle starts from metrics within
+// the (K-1)*510 spread above the subtracted minimum and adds at most
+// 510 a step, under 24,000 at K = 24.
+// Branch metrics: the block builds, per step, word k and 2-bit column
+// code cb of an item's base, the packed (mt, mm) of values 2k, 2k+1 with
+// the row's part of the parities, the flips and the values' offsets
+// folded in; a word reads them with one 8-byte load at a compile-time
+// offset.
+#define VB_THREADS 512
+#define VB_WARPS (VB_THREADS / 32)
 
-  for (int i = threadIdx.x; i < ncols; i += blockDim.x) sm[i] = mr[i];
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) bm[i] = 0u;
+// stage ST (0 = A, 1 = B, 2 = C) at G = COLB - 12 g bits
+template <int G, int ST>
+struct BStage {
+  // column bit of value bit 1 (value bit 0 is column bit 0)
+  static constexpr int RB0 = ST == 0 ? 12 : (ST == 1 ? 4 : 1);
+  static constexpr int NV = 2 << (ST == 0 ? G : 3);  // values a lane holds
+  static constexpr int JJ0 = ST == 0 ? 0 : (ST == 1 ? G + 5 : G + 8);
+  static constexpr int SMAX = ST == 0 ? G + 5 : (ST == 1 ? 3 : 4);
+  static constexpr int ITEMS = ST == 0 ? 64 : (8 << G);
+  // pair bit of the stage's step u
+  __host__ __device__ static constexpr int pairbit(int u) {
+    return 11 + G - JJ0 - u;
+  }
+  // column offset of value v, and its decision word's offset in a plane
+  __host__ __device__ static constexpr int xoff(int v) {
+    return (v & 1) | ((v >> 1) << RB0);
+  }
+  __host__ __device__ static constexpr int woff(int v) {
+    return ((xoff(v) >> 12) << 7) | (xoff(v) & 127);
+  }
+  // the value bit a register step on column bit s pairs
+  __host__ __device__ static constexpr int vbit(int s) {
+    return s == 0 ? 0 : s - RB0 + 1;
+  }
+  // column of value 0 of item `it` at lane j (its fixed bits: A li 1..6;
+  // B li 1..3, then g; C li 4..6, then g)
+  __device__ static int col0(int it, int j) {
+    if (ST == 0) return (j << 7) | (it << 1);
+    if (ST == 1) return ((it >> 3) << 12) | (j << 7) | ((it & 7) << 1);
+    return ((it >> 3) << 12) | (j << 7) | ((it & 7) << 4);
+  }
+};
+
+// Two pairs at once, packed: a0 = lo + mt, a1 = hi + mm, a2 = lo + mm,
+// a3 = hi + mt per halfword (int16 with wrap-around, exact while the sums
+// stay in range), lo' = min(a0, a1), hi' = min(a2, a3) by the Hopper DPX
+// min that also reports a <= b per half: the decision is its negation
+// (a0 > a1: a tie keeps a0), one lane ballot per half.
+__device__ __forceinline__ void b_pairs(uint32_t& lo, uint32_t& hi, int2 t,
+                                        unsigned (&wl)[2], unsigned (&wh)[2]) {
+  const uint32_t a0 = __vadd2(lo, (uint32_t)t.x), a1 = __vadd2(hi, (uint32_t)t.y);
+  const uint32_t a2 = __vadd2(lo, (uint32_t)t.y), a3 = __vadd2(hi, (uint32_t)t.x);
+  bool p0h, p0l, p1h, p1l;
+  lo = __vibmin_s16x2(a0, a1, &p0h, &p0l);
+  hi = __vibmin_s16x2(a2, a3, &p1h, &p1l);
+  wl[0] = __ballot_sync(0xffffffffu, !p0l);
+  wl[1] = __ballot_sync(0xffffffffu, !p0h);
+  wh[0] = __ballot_sync(0xffffffffu, !p1l);
+  wh[1] = __ballot_sync(0xffffffffu, !p1h);
+}
+
+// ns steps of stage ST on the whole row: decisions of step u to dbuf[u];
+// with `last`, each thread's per-half minimum of the final words into mn2
+template <int G, int ST>
+__device__ __forceinline__ void b_stage(uint32_t* __restrict__ row,
+                                        uint32_t* __restrict__ dbuf,
+                                        const int2* __restrict__ tab,
+                                        const int2* __restrict__ smask,
+                                        int ns, bool last, uint32_t& mn2) {
+  using S = BStage<G, ST>;
+  constexpr int NP = S::NV / 2;     // words (values 2k, 2k+1) a lane holds
+  constexpr int NW = 1 << (7 + G);  // decision words of a row per step
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int it = threadIdx.x >> 5; it < S::ITEMS; it += VB_WARPS) {
+    const int c0 = S::col0(it, lane);
+    const int wx = (c0 >> 1) ^ lane;
+    // the swizzled word of values (2k, 2k+1); stage A's offsets lie above
+    // the swizzled bits, B's and C's among them
+    int addr[NP];
+    uint32_t W[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      addr[k] = ST == 0 ? wx + (S::xoff(2 * k) >> 1) : wx ^ (S::xoff(2 * k) >> 1);
+      W[k] = row[addr[k]];
+    }
+    const int db0 = ((c0 >> 12) << 7) | (c0 & 127);  // value 0's word
+#pragma unroll
+    for (int u = 0; u < S::SMAX; ++u) {
+      if (u < ns) {
+        const int s = S::pairbit(u);
+        const int2 mk = smask[S::JJ0 + u];
+        const bool lanestep = s >= 7 && s <= 11;
+        const int cs = lanestep ? (c0 & ~(1 << s)) : c0;
+        const int cb = (__popc(cs & mk.x) & 1) | ((__popc(cs & mk.y) & 1) << 1);
+        const int2* tb = tab + ((S::JJ0 + u) << 5) + cb;  // word k at tb[4k]
+        uint32_t* du = dbuf + u * NW + db0;
+        if (lanestep) {
+          // lane j pairs with lane j ^ 2^l and decides its own position:
+          // k = own + mt, sw = partner + mm, the new value min(k, sw); the
+          // decision k > sw at a low lane (min(k, sw) reports k <= sw) and
+          // sw > k at a high one (min(sw, k) reports sw <= k)
+          const int l = s - 7;
+          const bool high = (lane >> l) & 1;
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            const int2 t = tb[k << 2];
+            const uint32_t p = __shfl_xor_sync(0xffffffffu, W[k], 1 << l);
+            const uint32_t kk = __vadd2(W[k], (uint32_t)t.x);
+            const uint32_t sw = __vadd2(p, (uint32_t)t.y);
+            bool ph, pl;
+            W[k] = __vibmin_s16x2(high ? sw : kk, high ? kk : sw, &ph, &pl);
+            const unsigned w0 = __ballot_sync(0xffffffffu, !pl);
+            const unsigned w1 = __ballot_sync(0xffffffffu, !ph);
+            if (lane == 0) *(uint2*)(du + S::woff(2 * k)) = make_uint2(w0, w1);
+          }
+        } else if (S::vbit(s) == 0) {
+          // column bit 0 pairs the halves of a word: with the table's
+          // (mt | mm << 16, mm | mt << 16), min((lo, lo) + (mt, mm),
+          // (hi, hi) + (mm, mt)) is (lo', hi') and reports a0 <= a1 in the
+          // low half, a2 <= a3 in the high one
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            const int2 t = tb[k << 2];
+            const uint32_t lo2 = __byte_perm(W[k], 0, 0x1010);
+            const uint32_t hi2 = __byte_perm(W[k], 0, 0x3232);
+            bool ph, pl;
+            W[k] = __vibmin_s16x2(__vadd2(lo2, (uint32_t)t.x),
+                                  __vadd2(hi2, (uint32_t)t.y), &ph, &pl);
+            const unsigned w0 = __ballot_sync(0xffffffffu, !pl);
+            const unsigned w1 = __ballot_sync(0xffffffffu, !ph);
+            if (lane == 0) *(uint2*)(du + S::woff(2 * k)) = make_uint2(w0, w1);
+          }
+        } else {
+          const int hw = S::vbit(s) - 1;  // the word bit the step pairs
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            if (k & (1 << hw)) continue;
+            const int k2 = k | (1 << hw);
+            unsigned wl[2], wh[2];
+            b_pairs(W[k], W[k2], tb[k << 2], wl, wh);
+            if (lane == 0) {
+              *(uint2*)(du + S::woff(2 * k)) = make_uint2(wl[0], wl[1]);
+              *(uint2*)(du + S::woff(2 * k2)) = make_uint2(wh[0], wh[1]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      row[addr[k]] = W[k];
+      if (last) mn2 = __vmins2(mn2, W[k]);
+    }
+  }
+}
+
+// the decision words of steps jj0 .. jj0+ns-1 of the row, 16 bytes a thread
+template <int NW>
+__device__ __forceinline__ void b_flush(const uint32_t* __restrict__ dbuf,
+                                        int32_t* __restrict__ db, int jj0,
+                                        int ns, long long tstride) {
+  for (int e = threadIdx.x; e < ns * (NW / 4); e += VB_THREADS) {
+    const int u = e / (NW / 4), q = e % (NW / 4);
+    *(uint4*)(db + (jj0 + u) * tstride + 4 * q) =
+        *(const uint4*)(dbuf + u * NW + 4 * q);
+  }
+}
+
+// the 4 words of a 16-byte vector with word k at position k ^ r
+__device__ __forceinline__ uint4 xswap(uint4 s, int r) {
+  const uint4 t = (r & 2) ? make_uint4(s.z, s.w, s.x, s.y) : s;
+  return (r & 1) ? make_uint4(t.y, t.x, t.w, t.z) : t;
+}
+
+// K6: steps rowb..rowb+nsteps-1 (column pairing) on one row of one frame,
+// COLB = 12 + G.  Shared memory (cycle_b_plan): the row, the decision
+// words of dsteps steps, the packed (mt, mm) table [nsteps][8 k][4 cb],
+// the column masks of each step.
+template <int G>
+__global__ void __launch_bounds__(VB_THREADS, 2) viterbi_b_kernel(
+    int16_t* __restrict__ metrics, const int32_t* __restrict__ syms,
+    int32_t* __restrict__ dec, long long dec_bstride, long long dec_tstride,
+    int32_t* __restrict__ mins, int rowb, int nsteps, int dsteps, unsigned q1,
+    unsigned q2, int g1flip, int g2flip) {
+  constexpr int COLB = 12 + G;
+  constexpr int NCOLS = 1 << COLB;
+  constexpr int NW = NCOLS >> 5;
+  constexpr int NVEC = NCOLS / 8;  // 16-byte vectors of a row
+  extern __shared__ __align__(16) uint32_t sbm[];
+  uint32_t* row = sbm;                           // [NCOLS / 2], swizzled
+  uint32_t* dbuf = row + NCOLS / 2;              // [dsteps][NW]
+  int2* tab = (int2*)(dbuf + dsteps * NW);       // [nsteps][8][4]
+  int2* smask = tab + nsteps * 32;               // [nsteps]
+  __shared__ int wmin[VB_WARPS];
+  const int b = blockIdx.y, R = blockIdx.x;
+  const int w = rowb + COLB;
+  uint4* grow = (uint4*)(metrics + ((((size_t)b << rowb) + R) << COLB));
+  uint4* srow = (uint4*)row;
+
+  // the row in: word k of vector e goes to chunk e ^ (j >> 2), position
+  // k ^ (j & 3) -- the word cycle_b_word gives it, in one 16-byte store
+  {
+    uint4 x[NVEC / VB_THREADS];
+#pragma unroll
+    for (int u = 0; u < NVEC / VB_THREADS; ++u) x[u] = grow[threadIdx.x + u * VB_THREADS];
+#pragma unroll
+    for (int u = 0; u < NVEC / VB_THREADS; ++u) {
+      const int e = threadIdx.x + u * VB_THREADS, j = (e >> 4) & 31;
+      srow[e ^ (j >> 2)] = xswap(x[u], j & 3);
+    }
+  }
+  // the block's table: entry (jj, k, cb), the packed (mt, mm) of values
+  // 2k and 2k+1 (at column bit 0's step, mt and mm of value 2k in both
+  // orders)
+  const int32_t* sy = syms + (size_t)b * 2 * nsteps;
+  for (int e = threadIdx.x; e < nsteps * 32; e += VB_THREADS) {
+    const int jj = e >> 5, k = (e >> 2) & 7, cb = e & 3;
+    const unsigned m1 = rotr_w(q1, rowb + jj, w), m2 = rotr_w(q2, rowb + jj, w);
+    const int rb0 = jj < BStage<G, 1>::JJ0   ? BStage<G, 0>::RB0
+                    : jj < BStage<G, 2>::JJ0 ? BStage<G, 1>::RB0
+                                             : BStage<G, 2>::RB0;
+    const int s0 = sy[2 * jj], s1 = sy[2 * jj + 1];
+    int mt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned p = ((unsigned)R << COLB) |
+                         (((unsigned)h | ((unsigned)k << rb0)) & (NCOLS - 1));
+      const int code = cb ^ ((__popc(p & m1) & 1) ^ g1flip) ^
+                       (((__popc(p & m2) & 1) ^ g2flip) << 1);
+      mt[h] = ((code & 1) ? 255 - s0 : s0) + ((code & 2) ? 255 - s1 : s1);
+    }
+    if (jj == COLB - 1)  // pair bit 0
+      tab[e] = make_int2(mt[0] | ((510 - mt[0]) << 16), (510 - mt[0]) | (mt[0] << 16));
+    else
+      tab[e] = make_int2(mt[0] | (mt[1] << 16), (510 - mt[0]) | ((510 - mt[1]) << 16));
+  }
+  if (threadIdx.x < nsteps) {
+    const int jj = threadIdx.x;
+    smask[jj] = make_int2((int)(rotr_w(q1, rowb + jj, w) & (NCOLS - 1)),
+                          (int)(rotr_w(q2, rowb + jj, w) & (NCOLS - 1)));
+  }
   __syncthreads();
 
-  const int32_t* sb = syms + (size_t)b * 2 * nsteps;
-  const unsigned rowp = (unsigned)R << colb;
-  for (int j = 0; j < nsteps; ++j) {
-    const int t = rowb + j;
-    const int s = w - 1 - t;  // pair offset 2^s < ncols
-    const int o = 1 << s;
-    const unsigned m1 = rotr_w(q1, t, w), m2 = rotr_w(q2, t, w);
-    const int s0 = sb[2 * j], s1 = sb[2 * j + 1];
-    for (int pi = threadIdx.x; pi < (ncols >> 1); pi += blockDim.x) {
-      const int clo = ((pi >> s) << (s + 1)) | (pi & (o - 1));
-      const int chi = clo | o;
-      const int mt = branch_metric(rowp | clo, m1, m2, g1flip, g2flip, s0, s1);
-      const int mm = 510 - mt;
-      const int lo = sm[clo], hi = sm[chi];
-      const int a0 = lo + mt, a1 = hi + mm, a2 = lo + mm, a3 = hi + mt;
-      const bool d0 = a0 > a1, d1 = a2 > a3;
-      sm[clo] = d0 ? a1 : a0;
-      sm[chi] = d1 ? a3 : a2;
-      if (d0) atomicOr(&bm[(clo >> 12) * 128 + (clo & 127)], 1u << ((clo >> 7) & 31));
-      if (d1) atomicOr(&bm[(chi >> 12) * 128 + (chi & 127)], 1u << ((chi >> 7) & 31));
-    }
+  uint32_t mn2 = 0x7FFF7FFFu;
+  int32_t* db = dec + b * dec_bstride + (size_t)R * NW;
+  constexpr int JB = BStage<G, 1>::JJ0, JC = BStage<G, 2>::JJ0;
+  const int na = min(nsteps, JB);
+  b_stage<G, 0>(row, dbuf, tab, smask, na, nsteps == na, mn2);
+  __syncthreads();
+  b_flush<NW>(dbuf, db, 0, na, dec_tstride);
+  if (nsteps > JB) {
+    const int nb = min(nsteps, JC) - JB;
     __syncthreads();
-    int32_t* db = dec + b * dec_bstride + j * dec_tstride + (size_t)R * nw;
-    for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-      db[i] = (int32_t)bm[i];
-      bm[i] = 0u;
-    }
+    b_stage<G, 1>(row, dbuf, tab, smask, nb, nsteps == JB + nb, mn2);
     __syncthreads();
+    b_flush<NW>(dbuf, db, JB, nb, dec_tstride);
+    if (nsteps > JC) {
+      __syncthreads();
+      b_stage<G, 2>(row, dbuf, tab, smask, nsteps - JC, true, mn2);
+      __syncthreads();
+      b_flush<NW>(dbuf, db, JC, nsteps - JC, dec_tstride);
+    }
   }
 
-  int mn = INT_MAX;
-  for (int i = threadIdx.x; i < ncols; i += blockDim.x) {
-    const int v = sm[i];
-    mr[i] = (int16_t)v;
-    mn = min(mn, v);
+  // the row out (the inverse permutation), and its minimum
+#pragma unroll
+  for (int u = 0; u < NVEC / VB_THREADS; ++u) {
+    const int e = threadIdx.x + u * VB_THREADS, j = (e >> 4) & 31;
+    grow[e] = xswap(srow[e ^ (j >> 2)], j & 3);
   }
+  int mn = min((int)(int16_t)(mn2 & 0xFFFFu), (int)mn2 >> 16);
   for (int off = 16; off > 0; off >>= 1)
     mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
   if ((threadIdx.x & 31) == 0) wmin[threadIdx.x >> 5] = mn;
   __syncthreads();
   if (threadIdx.x < 32) {
-    mn = threadIdx.x < (int)(blockDim.x >> 5) ? wmin[threadIdx.x] : INT_MAX;
+    mn = threadIdx.x < VB_WARPS ? wmin[threadIdx.x] : INT_MAX;
     for (int off = 16; off > 0; off >>= 1)
       mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
     if (threadIdx.x == 0) mins[((size_t)b << rowb) + R] = mn;
@@ -481,21 +713,62 @@ extern "C" int viterbi_a_launch(int16_t* metrics, const int32_t* syms,
 #undef VA_GO
 }
 
-// mins (B, 2^ROWB) int32: each row's minimum after the last step.
+// mins (B, 2^ROWB) int32: each row's minimum after the last step.  The
+// shared memory comes from the wrapper's plan (viterbi_cuda.cycle_b_plan)
+// and is checked here against the layout the kernel uses.
+template <int G>
+static cudaError_t viterbi_b_go(int16_t* metrics, const int32_t* syms,
+                                int32_t* dec, long long dec_bstride,
+                                long long dec_tstride, int32_t* mins, int B,
+                                int rowb, int nsteps, int q1, int q2,
+                                int g1flip, int g2flip, int smem,
+                                cudaStream_t stream) {
+  constexpr int NCOLS = 1 << (12 + G);
+  // decision words of stage A's steps, the longest stage
+  const int dsteps = min(nsteps, BStage<G, 0>::SMAX);
+  if (smem != 2 * NCOLS + dsteps * (NCOLS / 32) * 4 + nsteps * (32 * 8 + 8))
+    return cudaErrorInvalidValue;
+  // per device, the dynamic shared memory the kernel was allowed so far
+  // (the block's limit less its static minima could not be asked for)
+  static int allowed[32] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(viterbi_b_kernel<G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    // all of the SM's unified L1 as shared memory: two blocks of ~104 KB
+    err = cudaFuncSetAttribute(viterbi_b_kernel<G>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) allowed[dev] = smem;
+  }
+  dim3 grid(1 << rowb, B);
+  viterbi_b_kernel<G><<<grid, VB_THREADS, smem, stream>>>(
+      metrics, syms, dec, dec_bstride, dec_tstride, mins, rowb, nsteps, dsteps,
+      (unsigned)q1, (unsigned)q2, g1flip, g2flip);
+  return cudaGetLastError();
+}
+
 extern "C" int viterbi_b_launch(int16_t* metrics, const int32_t* syms,
                                 int32_t* dec, long long dec_bstride,
                                 long long dec_tstride, int32_t* mins, int B,
                                 int rowb, int colb, int nsteps, int q1, int q2,
-                                int g1flip, int g2flip, void* stream) {
-  const int ncols = 1 << colb;
-  const size_t smem = (size_t)(ncols + (ncols >> 5)) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      viterbi_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(1 << rowb, B);
-  viterbi_b_kernel<<<grid, VB_THREADS, smem, (cudaStream_t)stream>>>(
-      metrics, syms, dec, dec_bstride, dec_tstride, mins, rowb, colb, nsteps,
-      (unsigned)q1, (unsigned)q2, g1flip, g2flip);
-  return (int)cudaGetLastError();
+                                int g1flip, int g2flip, int smem,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define VB_GO(C)                                                             \
+  case C:                                                                    \
+    return (int)viterbi_b_go<C - 12>(metrics, syms, dec, dec_bstride,        \
+                                     dec_tstride, mins, B, rowb, nsteps, q1, \
+                                     q2, g1flip, g2flip, smem, s);
+  switch (colb) {
+    VB_GO(12) VB_GO(13) VB_GO(14) VB_GO(15)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VB_GO
 }

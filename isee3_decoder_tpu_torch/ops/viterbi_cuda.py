@@ -17,8 +17,9 @@ with branch metric ``mt`` and ``mm = 510 - mt``:
     lo' = a1 if d0 else a0,  hi' = a3 if d1 else a2
 
 (ties keep a0 at lo and a2 at hi, viterbi224_sse2.c:303-321), in int32
-over int16 storage, and pack the decisions in the contract layout of
-ops/viterbi_inplace.py.  K5 subtracts the deferred renormalization
+over int16 storage (the CUDA K6 in int16 halves: the same while the sums
+stay in the int16 range, as the renormalization keeps them), and pack
+the decisions in the contract layout of ops/viterbi_inplace.py.  K5 subtracts the deferred renormalization
 ``base`` as it reads; K6 emits per-row minima for the next cycle's base.
 
 Both wrappers update ``metrics`` IN PLACE (the JAX functions return new
@@ -64,8 +65,9 @@ def _colpar_planes(code: CodeSpec, nsteps: int) -> np.ndarray:
     step the column halves of the two branch-parity folds (at the pair's
     low column) and the high-position bit.  The TPU kernel B reads them
     precomputed; the plain K6 here uses them too, while the CUDA K6
-    computes its parities with ``__popc`` — so the check of kernel
-    against plain also holds the two forms equal."""
+    reads its branch metrics from a table it builds per row (parities
+    split by item and register bits) — so the check of kernel against
+    plain also holds the two forms equal."""
     w, rowb, colb = _geometry(code)
     cols = np.arange(1 << colb, dtype=np.int64)
     rows = []
@@ -241,6 +243,80 @@ def cycle_a_tile(code: CodeSpec, x: int) -> tuple[np.ndarray, np.ndarray]:
         (rows * ((1 << colb) // 32) + words).reshape(-1)
 
 
+B_THREADS = 512  # threads of a K6 block (VB_THREADS): two blocks an SM
+B_LANE_BITS = (7, 8, 9, 10, 11)  # column bits of j, a warp's lanes in K6
+
+
+@functools.lru_cache(maxsize=64)
+def cycle_b_plan(code: CodeSpec, nsteps: int | None = None) -> dict:
+    """K6's launch plan (csrc/viterbi.cu ``viterbi_b_kernel``): one block
+    per (frame, row); the row, 2^COLB int16, in shared memory as words
+    of column pairs (c, c+1) at ``cycle_b_word(c)``.  Steps s = COLB-1,
+    COLB-2, … (the pair offset 2^s) run in up to three register stages:
+
+    - A: the g bits s = COLB-1 … 12 in registers, then the j bits s = 11
+      … 7 across the lanes (the partner by a warp shuffle);
+    - B: li bits s = 6, 5, 4 in registers;
+    - C: li bits s = 3, 2, 1, 0 in registers (bit 0 pairs the halves of
+      a word).
+
+    A warp takes an item: lane j holds the values at the columns
+    ``fixed(item) | j << 7 | reg(v)`` for every v — column bit 0 and the
+    stage's register bits — so a decision ballot over the lanes is one
+    whole decision word.  A stage's steps are truncated at ``nsteps``.
+    Each stage: ``reg`` (the column bit of value bit k, k = 0, 1, …),
+    ``fixed`` (the column bit of item bit k), ``steps`` (the pair bits
+    s it runs), ``first`` (the index of its first step), ``items``.
+    Shared memory: the row, the decision words of the longest stage run
+    (a row's 2^COLB / 32 words a step), the branch-metric table (32
+    packed (mt, mm) pairs a step) and the step masks."""
+    _, _, colb = _geometry(code)
+    nsteps = colb if nsteps is None else nsteps
+    if not 1 <= nsteps <= colb:
+        raise ValueError(f"{code.name}: K6 runs 1..{colb} steps, not {nsteps}")
+    gbits = tuple(range(12, colb))
+    full = (
+        ((0, *gbits), (1, 2, 3, 4, 5, 6), tuple(range(colb - 1, 6, -1))),
+        ((0, 4, 5, 6), (1, 2, 3, *gbits), (6, 5, 4)),
+        ((0, 1, 2, 3), (4, 5, 6, *gbits), (3, 2, 1, 0)),
+    )
+    stages, first = [], 0
+    for reg, fixed, steps in full:
+        steps = steps[: nsteps - first]
+        if not steps:
+            break
+        stages.append({"reg": reg, "fixed": fixed, "steps": steps,
+                       "first": first, "items": 1 << len(fixed)})
+        first += len(steps)
+    ncols = 1 << colb
+    dsteps = max(len(st["steps"]) for st in stages)
+    smem = 2 * ncols + dsteps * (ncols // 32) * 4 + nsteps * (32 * 8 + 8)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{code.name}: K6 needs {smem} bytes of shared memory")
+    return {"stages": stages, "threads": B_THREADS, "smem": smem,
+            "dsteps": dsteps}
+
+
+def cycle_b_columns(stage: dict, item: int) -> np.ndarray:
+    """(32 lanes, values) int64 columns a warp holds for ``item`` of a
+    stage of ``cycle_b_plan``: lane j, value v at fixed(item) | j << 7 |
+    reg(v)."""
+    def spread(x, bits):
+        return sum(((x >> k) & 1) << b for k, b in enumerate(bits))
+
+    v = np.arange(1 << len(stage["reg"]), dtype=np.int64)
+    j = np.arange(32, dtype=np.int64)
+    return (spread(item, stage["fixed"]) | spread(j, B_LANE_BITS)[:, None]
+            | spread(v, stage["reg"])[None, :])
+
+
+def cycle_b_word(c):
+    """The shared-memory word of K6's row that holds column c (and its
+    pair partner c ^ 1): (c >> 1) ^ j, j = (c >> 7) & 31, so that the 32
+    lanes of a warp (the 32 values of j) read 32 banks."""
+    return (c >> 1) ^ ((c >> 7) & 31)
+
+
 def _check_launch(metrics, syms, code, nsteps, lo, hi, name):
     if (metrics.dtype != torch.int16 or metrics.ndim != 2
             or metrics.shape[1] != code.nstates or not metrics.is_contiguous()):
@@ -310,12 +386,18 @@ def cycle_b(metrics, syms, code=DEFAULT_CODE, nsteps=None, dec=None):
     B, n = metrics.shape
     dev = metrics.device
     dec = _dec_out(dec, B, nsteps, n, dev)
+    # the kernel moves metrics and decision words as 16-byte vectors
+    if (metrics.data_ptr() % 16 or dec.data_ptr() % 16
+            or dec.stride(0) % 4 or dec.stride(1) % 4):
+        raise ValueError("cycle_b: metrics and dec must be 16-byte aligned, "
+                         "dec's strides multiples of 4 words")
     mins = torch.empty((B, 1 << rowb), dtype=torch.int32, device=dev)
+    plan = cycle_b_plan(code, nsteps)
     q1, q2 = _branch_masks(code)
     err = _kernels.lib().viterbi_b_launch(
         metrics.data_ptr(), syms.data_ptr(), dec.data_ptr(), dec.stride(0),
         dec.stride(1), mins.data_ptr(), B, rowb, colb, nsteps, q1, q2,
-        code.g1flip, code.g2flip, _kernels.stream_ptr(dev),
+        code.g1flip, code.g2flip, plan["smem"], _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "viterbi_b_launch")
     _kernels.count_launch("viterbi_b")

@@ -1,4 +1,4 @@
-"""Time kernels K1, K8, K5 and K9 of one checkout of the port, for
+"""Time kernels K1, K8, K5, K6 and K9 of one checkout of the port, for
 comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
@@ -14,6 +14,8 @@ tree), builds its kernels, and prints one JSON line:
   the same two ways;
 - K5 (``viterbi_cuda.cycle_a``) over a whole K = 24 row phase at B = 10,
   the threshold block's batch: event ms and device ms per launch;
+- K6 (``viterbi_cuda.cycle_b``) over a whole K = 24 column phase (15
+  steps) at B = 10: event ms and device ms per launch;
 - K9 (``carrier_cuda.pm_scan_locked_fused``, the pm scan in one launch)
   at the bench shape, 128 x 32 x 65,536, K = 107, on a clean block
   (noise 2500): event ms and device ms per launch;
@@ -24,7 +26,8 @@ tree), builds its kernels, and prints one JSON line:
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
-K5: bit for bit; K9: ok lanes and locks equal, frequency and centre
+K5: bit for bit; K6: metrics, decision words and row minima bit for
+bit; K9: ok lanes and locks equal, frequency and centre
 within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB; K1:
 frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within 1e-2
 dB, baseband within 1 LSB).  Every CUDA-event time is taken before the
@@ -62,25 +65,36 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps: int) -> tuple[float, float, dict]:
+def _device_ms(torch, fn, reps: int, warmup: int = 5) -> tuple[float, float, dict]:
     """(device ms per call summed over every kernel, kernels per call,
-    device ms per call of each kernel by name) under torch.profiler."""
+    device ms per call of each kernel by name) under torch.profiler, over
+    reps calls after ``warmup`` calls in the schedule's warm-up (tracing
+    on, events dropped: the first launches after the tracing starts may
+    go unrecorded)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict[str, float] = {}
     count = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
-            count += 1
+
+    def ready(prof):
+        nonlocal count
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+                by_name[e.name] = by_name.get(e.name, 0.0) + ms
+                count += 1
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=reps,
+                                   repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(warmup + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     return sum(by_name.values()), count / reps, by_name
 
 
@@ -174,6 +188,28 @@ def main() -> int:
     timed.append(("k5", k5, 20, out["k5"]))
     del dk, dp, m0
 
+    # ---- K6 over a whole K = 24 column phase at the same batch
+    nb = w - rowb
+    gen.manual_seed(26)
+    m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    sb = torch.randint(0, 256, (B, 2 * nb), generator=gen, device=dev,
+                       dtype=torch.int32)
+    m6, m6p = m0.clone(), m0.clone()
+    _, dk, nk = vc.cycle_b(m6, sb, code, nb)
+    _, dp, npl = vc.cycle_b_plain(m6p, sb, code, nb)
+    ok6 = bool(torch.equal(m6, m6p) and torch.equal(dk, dp)
+               and torch.equal(nk, npl))
+    del dk, dp, m6p, m0
+    db = torch.empty((B, nb, code.nstates // 32), dtype=torch.int32,
+                     device=dev)
+
+    def k6():
+        vc.cycle_b(m6, sb, code, nb, db)
+
+    out["k6"] = {"shape": f"K = 24, B = {B}, {nb} steps", "ok": ok6}
+    timed.append(("k6", k6, 20, out["k6"]))
+
     # ---- K9 at the bench shape
     B, T = 128, 32
     cfg = carrier.PMConfig(samprate=250_000.0, binsize=4.0, search_width=200.0)
@@ -254,7 +290,7 @@ def main() -> int:
             rec.update(device_ms=dms, kernels_per_call=per_call,
                        kernels=by_name)
     print(json.dumps(out), flush=True)
-    return 0 if ok8 and ok5 and ok9 and ok1 else 1
+    return 0 if ok8 and ok5 and ok6 and ok9 and ok1 else 1
 
 
 if __name__ == "__main__":

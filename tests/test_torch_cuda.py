@@ -35,6 +35,10 @@ K9F = CodeSpec("TESTK9F", 0o713, 0o715, 9, 0, 1)
 K15 = CodeSpec("TESTK15", 0o46321, 0o51445, 15, 0, 1)
 K18 = CodeSpec("TESTK18", 0o654321, 0o735271, 18, 0, 1)
 K14 = CodeSpec("TESTK14", 0o21645, 0o35661, 14, 0, 1)
+# the largest metric K6 is given: a cycle starts within the (K-1)*510
+# spread above the subtracted minimum and K5's 8 row steps add at most
+# 510 each, at K = 24
+K6_TOP = 23 * 510 + 8 * 510
 
 
 @pytest.fixture
@@ -270,6 +274,66 @@ def test_k5_refuses_unaligned_buffers(dev):
     syms = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="16-byte aligned"):
         viterbi_cuda.cycle_a(flat[4:].view(1, n), syms, K15, 1)
+
+
+@pytest.mark.parametrize("data", ["random", "ties", "top"])
+@pytest.mark.parametrize("B", [1, 3, 10])
+@pytest.mark.parametrize("code,nsteps", [
+    (K14, None), (K14, 4), (K14, 1), (K15, None), (K15, 4), (K15, 1),
+    (K18, None), (K18, 4), (K18, 1), (DEFAULT_CODE, None), (DEFAULT_CODE, 4),
+    (DEFAULT_CODE, 1)],
+    ids=["K14", "K14-4", "K14-1", "K15", "K15-4", "K15-1", "K18", "K18-4",
+         "K18-1", "MCQLI24", "MCQLI24-4", "MCQLI24-1"])
+def test_k6_exact(dev, code, nsteps, B, data):
+    """K6 alone against cycle_b_plain, metrics, decision words and row
+    minima bit for bit, in whole and partial column phases (nsteps =
+    COLB, 4 as in a frame's tail, 1), on random metrics and on metrics
+    with many equal values and symbols 127/128, where the ties (a0 kept
+    at lo, a2 at hi) decide, and on metrics within 255 below the largest
+    that reaches K6 at K = 24 with symbols 0/255, where the int16 sums
+    are largest."""
+    _, _, colb = viterbi_cuda._geometry(code)
+    nsteps = colb if nsteps is None else nsteps
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(code.k * 100 + nsteps * 10 + B)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if data == "random":
+        m0 = ri(0, 12000, (B, code.nstates)).to(torch.int16)
+        syms = ri(0, 256, (B, 2 * nsteps))
+    elif data == "ties":
+        m0 = (ri(0, 3, (B, code.nstates)) * 255).to(torch.int16)
+        syms = ri(127, 129, (B, 2 * nsteps))
+    else:
+        m0 = (K6_TOP - ri(0, 256, (B, code.nstates))).to(torch.int16)
+        syms = ri(0, 2, (B, 2 * nsteps)) * 255
+    mk, mp = m0.clone(), m0.clone()
+    # the decision planes land in a strided view, as the tape gives them
+    tape = torch.zeros((nsteps + 1, B, code.nstates // 32), dtype=torch.int32,
+                       device=dev)
+    dk = tape[1:].transpose(0, 1)
+    nb = _kernels.LAUNCHES["viterbi_b"]
+    _, _, mins_k = viterbi_cuda.cycle_b(mk, syms, code, nsteps, dk)
+    _, dp, mins_p = viterbi_cuda.cycle_b_plain(mp, syms, code, nsteps)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_b"] == nb + 1
+    assert torch.equal(mk, mp)
+    assert torch.equal(dk, dp)
+    assert torch.equal(mins_k, mins_p)
+    assert not bool(tape[0].any())
+    if data == "top":
+        assert int(mp.max()) > K6_TOP + nsteps * 100
+
+
+def test_k6_refuses_unaligned_buffers(dev):
+    n = K15.nstates
+    flat = torch.zeros(n + 4, dtype=torch.int16, device=dev)
+    syms = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        viterbi_cuda.cycle_b(flat[4:].view(1, n), syms, K15, 1)
 
 
 def test_decode_frame_fused_kernels_exact(dev):

@@ -1,13 +1,15 @@
 """Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``),
-K8 (csrc/carrier.cu ``windowed_search_kernel``) and K9 (csrc/carrier.cu
-``pm_scan_kernel``), checked on the CPU: the tiles cover every state,
-sample, column and bin exactly once, every decision word has one writer,
-and shared memory stays within one block's limit.  The kernels' index
-arithmetic is mirrored here (the radix stages of K5 with their split
-branch parities; the 16 x C split of K8 with its integer phase walks;
-K9's 256-point column DFTs by two 16-point stages and its outer sum) and
-held against the plain versions, since the kernels themselves run only
-on the card.
+K6 (csrc/viterbi.cu ``viterbi_b_kernel``), K8 (csrc/carrier.cu
+``windowed_search_kernel``) and K9 (csrc/carrier.cu ``pm_scan_kernel``),
+checked on the CPU: the tiles cover every state, sample, column and bin
+exactly once, every decision word has one writer, shared memory stays
+within one block's limit, and K6's swizzled row puts a warp's accesses
+in 32 banks.  The kernels' index arithmetic is mirrored here (the radix
+stages of K5 with their split branch parities; K6's register stages,
+lane steps by exchange and (mt, mm) table; the 16 x C split of K8 with
+its integer phase walks; K9's 256-point column DFTs by two 16-point
+stages and its outer sum) and held against the plain versions, since
+the kernels themselves run only on the card.
 """
 
 import itertools
@@ -151,6 +153,262 @@ def test_k5_stage_arithmetic_matches_plain(k, nsteps):
         viterbi_cuda._pack_words(torch.as_tensor(got_d.reshape(-1, code.nstates)))
         .reshape(B, nsteps, -1))
     assert torch.equal(want, dp)
+
+
+# ---------------------------------------------------------------- K6 plan
+
+def _k6_all_columns(stage):
+    """(items, 32 lanes, values) columns of every item of a K6 stage."""
+    return np.stack([viterbi_cuda.cycle_b_columns(stage, it)
+                     for it in range(stage["items"])])
+
+
+def _word_of(cols):
+    """Decision word of a column in its row's slice of a plane (the
+    contract of ops/viterbi_inplace.py; the bit is (c >> 7) & 31)."""
+    return ((cols >> 12) << 7) | (cols & 127)
+
+
+@pytest.mark.parametrize("k,nsteps", [(k, n) for k in range(14, 25)
+                                      for n in (1, 4, None)])
+def test_k6_plan_covers_every_column_and_word_once(k, nsteps):
+    code = _code(k)
+    _, _, colb = viterbi_cuda._geometry(code)
+    plan = viterbi_cuda.cycle_b_plan(code, nsteps)
+    nsteps = colb if nsteps is None else nsteps
+    assert plan["smem"] <= SMEM_MAX
+    # two blocks share an SM (228 KB, 1 KB of each block reserved)
+    assert 2 * (plan["smem"] + 1024) <= 233_472
+    assert plan["threads"] % 32 == 0
+    # the stages run the pair bits s = COLB-1, COLB-2, … in order, a
+    # register step on a register bit, a lane step on a j bit
+    steps = [s for st in plan["stages"] for s in st["steps"]]
+    assert steps == list(range(colb - 1, colb - 1 - nsteps, -1))
+    ncols = 1 << colb
+    for st in plan["stages"]:
+        assert st["steps"] == tuple(steps[st["first"]:st["first"]
+                                          + len(st["steps"])])
+        assert all(s in st["reg"] or s in viterbi_cuda.B_LANE_BITS
+                   for s in st["steps"])
+        assert len(st["steps"]) <= plan["dsteps"]
+        cols = _k6_all_columns(st)
+        # every column of the row once per stage
+        assert np.array_equal(np.bincount(cols.ravel(), minlength=ncols),
+                              np.ones(ncols, dtype=np.int64))
+        # lane j holds the columns of bit j of their decision words, and a
+        # (item, value) ballot over the lanes is one whole word: each of
+        # a step's words once per stage
+        assert ((cols >> 7) & 31 == np.arange(32)[None, :, None]).all()
+        words = _word_of(cols)
+        assert (words == words[:, :1]).all()
+        assert np.array_equal(np.bincount(words[:, 0].ravel(),
+                                          minlength=ncols // 32),
+                              np.ones(ncols // 32, dtype=np.int64))
+
+
+@pytest.mark.parametrize("colb", [12, 13, 14, 15])
+def test_k6_swizzle_is_a_bijection_without_bank_conflicts(colb):
+    code = _code(colb + 2)
+    assert viterbi_cuda._geometry(code)[2] == colb
+    ncols = 1 << colb
+    addr = viterbi_cuda.cycle_b_word(np.arange(0, ncols, 2))
+    assert np.array_equal(np.sort(addr), np.arange(ncols // 2))
+    # every warp access of every stage: a word (value pair v, v+1) of 32
+    # lanes hits 32 banks
+    for st in viterbi_cuda.cycle_b_plan(code)["stages"]:
+        banks = viterbi_cuda.cycle_b_word(_k6_all_columns(st)[..., 0::2]) % 32
+        assert (np.sort(banks, axis=1) == np.arange(32)[None, :, None]).all()
+    # the row's 16-byte vectors: vector e (words 4e .. 4e+3) goes whole to
+    # chunk e ^ (j >> 2), word k at position k ^ (j & 3), which is where
+    # cycle_b_word puts it; 8 vectors of a quarter warp cover 32 banks
+    e = np.arange(ncols // 8)
+    j = (e >> 4) & 31
+    k = np.arange(4)
+    chunk = e ^ (j >> 2)
+    assert np.array_equal(
+        4 * chunk[:, None] + (k[None, :] ^ (j[:, None] & 3)),
+        viterbi_cuda.cycle_b_word(2 * (4 * e[:, None] + k[None, :])))
+    banks = (4 * chunk[:, None] + k).reshape(-1, 32) % 32
+    assert (np.sort(banks, axis=1) == np.arange(32)).all()
+
+
+def _k6_table(code, nsteps, syms):
+    """(B, rows, nsteps, 8, 4, 2, 2) packed tables as viterbi_b_kernel
+    builds them per block: entry [jj][k][cb] holds two words (x, y) of two
+    int16 halves each.  mt(v) is the branch metric of step jj at the
+    column code cb of an item's base, XORed with the row's code and the
+    flips and with the code of value v's offset in its stage; x = (mt,
+    mt) and y = (mm, mm) of values (2k, 2k+1), or at column bit 0's step
+    x = (mt, mm), y = (mm, mt) of value 2k."""
+    w, rowb, colb = viterbi_cuda._geometry(code)
+    plan = viterbi_cuda.cycle_b_plan(code, nsteps)
+    q1, q2 = _branch_masks(code)
+    B = syms.shape[0]
+    rows = np.arange(1 << rowb, dtype=np.int64)
+    tab = np.zeros((B, 1 << rowb, nsteps, 8, 4, 2, 2), dtype=np.int64)
+    cb = np.arange(4)
+    for st in plan["stages"]:
+        v = np.arange(1 << len(st["reg"]), dtype=np.int64)
+        x = sum(((v >> k) & 1) << b for k, b in enumerate(st["reg"]))
+        for u, s in enumerate(st["steps"]):
+            jj = st["first"] + u
+            m1, m2 = _rotr(q1, rowb + jj, w), _rotr(q2, rowb + jj, w)
+            rc = ((_parity(rows & (m1 >> colb)) ^ code.g1flip)
+                  | (_parity(rows & (m2 >> colb)) ^ code.g2flip) << 1)
+            xc = _parity(x & m1) | _parity(x & m2) << 1
+            code4 = rc[:, None, None] ^ xc[None, :, None] ^ cb[None, None, :]
+            s0 = syms[:, 2 * jj, None, None, None].astype(np.int64)
+            s1 = syms[:, 2 * jj + 1, None, None, None].astype(np.int64)
+            mt = (np.where(code4 & 1, 255 - s0, s0)
+                  + np.where(code4 & 2, 255 - s1, s1))  # (B, rows, NV, 4)
+            lo, hi = mt[:, :, 0::2], mt[:, :, 1::2]
+            nk = lo.shape[2]
+            if s == 0:
+                words = ((lo, 510 - lo), (510 - lo, lo))
+            else:
+                words = ((lo, hi), (510 - lo, 510 - hi))
+            for xy, (h0, h1) in enumerate(words):
+                tab[:, :, jj, :nk, :, xy, 0] = h0
+                tab[:, :, jj, :nk, :, xy, 1] = h1
+    return tab
+
+
+def _i16(x):
+    """int16 wrap-around of each halfword sum (the packed adds)."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _k6_stages(m16, syms, code, nsteps):
+    """numpy mirror of viterbi_b_kernel: the row as int16 pairs at
+    cycle_b_word between stages; per stage and item, lane j's words
+    (values 2k, 2k+1 as two int16 halves) in registers; register steps
+    pair words (or the halves of a word at column bit 0), lane steps pair
+    lanes j, j ^ 2^(s-7) (the shuffle: each lane decides its own
+    position); the packed (mt, mm) read from the block's table at the
+    item's column code; halfword sums with int16 wrap-around; each min
+    reports a <= b and the decision is its negation (a tie keeps the
+    first operand), one lane ballot per half → (metrics int16, decision
+    words (B, nsteps, n/32) int32, row minima (B, rows))."""
+    w, rowb, colb = viterbi_cuda._geometry(code)
+    plan = viterbi_cuda.cycle_b_plan(code, nsteps)
+    q1, q2 = _branch_masks(code)
+    B = m16.shape[0]
+    nrows, ncols = 1 << rowb, 1 << colb
+    tab = _k6_table(code, nsteps, syms)
+    lane = np.arange(32)
+    # the row's words (c, c+1) at cycle_b_word(c)
+    m = m16.reshape(B, nrows, ncols).astype(np.int64)
+    words = np.zeros((B, nrows, ncols // 2), dtype=np.int64)
+    c = np.arange(0, ncols, 2)
+    words[:, :, viterbi_cuda.cycle_b_word(c)] = ((m[..., 0::2] & 0xFFFF)
+                                                 | (m[..., 1::2] & 0xFFFF) << 16)
+    dec = np.full((B, nsteps, nrows, ncols // 32), -1, dtype=np.int64)
+
+    def vmin(a, b):  # per-half min and the decision !(a <= b)
+        return np.minimum(a, b), ~(a <= b)
+
+    for st in plan["stages"]:
+        cols = _k6_all_columns(st)  # (items, 32, NV)
+        wa = viterbi_cuda.cycle_b_word(cols[..., 0::2])  # (items, 32, NP)
+        wv = words[:, :, wa]
+        # (B, rows, items, 32, NP, 2 halves)
+        W = np.stack([_i16(wv & 0xFFFF), _i16(wv >> 16)], axis=-1)
+        nw = W.shape[-2]
+        c0 = cols[..., 0]
+        for u, s in enumerate(st["steps"]):
+            jj = st["first"] + u
+            t = rowb + jj
+            mk1 = _rotr(q1, t, w) & (ncols - 1)
+            mk2 = _rotr(q2, t, w) & (ncols - 1)
+            lanestep = s in viterbi_cuda.B_LANE_BITS
+            c0s = c0 & ~(1 << s) if lanestep else c0
+            cb = _parity(c0s & mk1) | _parity(c0s & mk2) << 1  # (items, 32)
+            tj = tab[:, :, jj][:, :, np.arange(nw)[None, None, :],
+                               cb[:, :, None]]  # (B, rows, items, 32, NP, 2, 2)
+            X, Y = tj[..., 0, :], tj[..., 1, :]
+            if lanestep:
+                high = ((lane >> (s - 7)) & 1)[:, None, None] == 1
+                P = W[:, :, :, lane ^ (1 << (s - 7))]
+                kk, sw = _i16(W + X), _i16(P + Y)
+                W, d = vmin(np.where(high, sw, kk), np.where(high, kk, sw))
+            elif s == 0:
+                W, d = vmin(_i16(W[..., :1] + X), _i16(W[..., 1:] + Y))
+            else:
+                hw = st["reg"].index(s) - 1  # the word bit the step pairs
+                klo = np.array([k for k in range(nw) if not k >> hw & 1])
+                khi = klo | (1 << hw)
+                lo, hi = W[..., klo, :], W[..., khi, :]
+                Xl, Yl = X[..., klo, :], Y[..., klo, :]
+                W = W.copy()
+                d = np.zeros(W.shape, dtype=bool)
+                W[..., klo, :], d[..., klo, :] = vmin(_i16(lo + Xl), _i16(hi + Yl))
+                W[..., khi, :], d[..., khi, :] = vmin(_i16(lo + Yl), _i16(hi + Xl))
+            d = d.reshape(*d.shape[:-2], -1)  # values 2k + half
+            ballot = (d.astype(np.int64) << lane[:, None]).sum(axis=3)
+            widx = _word_of(cols[:, 0, :])  # (items, NV)
+            assert (dec[:, jj][:, :, widx] == -1).all()
+            dec[:, jj][:, :, widx] = ballot
+        mins = W.reshape(B, nrows, -1).min(axis=-1)
+        words[:, :, wa] = (W[..., 0] & 0xFFFF) | (W[..., 1] & 0xFFFF) << 16
+    out = np.zeros((B, nrows, ncols), dtype=np.int64)
+    out[..., 0::2] = words[:, :, viterbi_cuda.cycle_b_word(c)] & 0xFFFF
+    out[..., 1::2] = words[:, :, viterbi_cuda.cycle_b_word(c)] >> 16
+    dec32 = dec.astype(np.uint32).view(np.int32).reshape(B, nsteps, -1)
+    return (out.astype(np.uint16).view(np.int16).reshape(B, -1), dec32,
+            mins.astype(np.int32))
+
+
+# the largest metric K6 is given: a cycle starts within the (K-1)*510
+# spread above the subtracted minimum and K5's 8 row steps add at most
+# 510 each, at K = 24
+K6_TOP = 23 * 510 + 8 * 510
+
+
+def k6_top_inputs(rng, B, n, nsteps):
+    """Metrics within 255 below K6_TOP and symbols 0/255 (branch metrics
+    0, 255 or 510), so that the packed int16 sums run at the top of the
+    range K6 keeps exact."""
+    m0 = (K6_TOP - rng.integers(0, 256, (B, n))).astype(np.int16)
+    syms = (rng.integers(0, 2, (B, 2 * nsteps)) * 255).astype(np.int32)
+    return m0, syms
+
+
+@pytest.mark.parametrize("data", ["random", "ties", "top"])
+@pytest.mark.parametrize("k,nsteps", [(14, None), (14, 2), (16, None),
+                                      (16, 9), (18, None), (18, 4), (20, 5),
+                                      (20, None)])
+def test_k6_stage_arithmetic_matches_plain(k, nsteps, data):
+    """The kernel's decomposition (register stages, lane steps by
+    exchange, the packed table of (mt, mm), halfword arithmetic, ballots
+    as decision words, int16 storage between stages) against
+    cycle_b_plain, bit for bit, for
+    whole and partial column phases (K20 with 5 steps stops inside the
+    j steps, K16 with 9 inside stage B), on random metrics, on metrics
+    in multiples of 255 with symbols 127/128, where ties decide, and on
+    metrics at the top of what reaches K6 at K = 24, where the int16
+    sums are largest."""
+    code = _code(k)
+    _, _, colb = viterbi_cuda._geometry(code)
+    nsteps = colb if nsteps is None else nsteps
+    rng = np.random.default_rng(k * 100 + nsteps)
+    B = 2
+    if data == "random":
+        m0 = rng.integers(0, 12000, (B, code.nstates)).astype(np.int16)
+        syms = rng.integers(0, 256, (B, 2 * nsteps)).astype(np.int32)
+    elif data == "ties":
+        m0 = (rng.integers(0, 3, (B, code.nstates)) * 255).astype(np.int16)
+        syms = rng.integers(127, 129, (B, 2 * nsteps)).astype(np.int32)
+    else:
+        m0, syms = k6_top_inputs(rng, B, code.nstates, nsteps)
+    got_m, got_d, got_mins = _k6_stages(m0, syms, code, nsteps)
+    mp = torch.as_tensor(m0.copy())
+    _, dp, mins = viterbi_cuda.cycle_b_plain(mp, torch.as_tensor(syms), code,
+                                             nsteps)
+    if data == "top":
+        assert int(mp.max()) > K6_TOP + nsteps * 100
+    assert np.array_equal(got_m, mp.numpy())
+    assert np.array_equal(got_d, dp.numpy())
+    assert np.array_equal(got_mins, mins.numpy())
 
 
 # ---------------------------------------------------------------- K8 plan
