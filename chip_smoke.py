@@ -26,8 +26,10 @@ against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
 CLI in a subprocess.  Last, after every timed block, the device time of
-kernels K1 (its search launch and spin passes apart), K8, K5, K6 and K9
-under torch.profiler (phase 12).
+kernels K1 (its search launch and spin passes apart), K8, K5, K6, K9 and
+K4 under torch.profiler (phase 12).  K4 is checked on both its designs
+("warp", one warp per lane, which the main path takes, and "thread",
+one thread per lane, for lanes too long for shared memory).
 Fails (non-zero exit, no result line) without a CUDA device, on a build
 error, or when any check fails.  Imports no JAX.
 
@@ -36,9 +38,11 @@ Output, in order: one line per phase; the card's name and power limit
 path, its error against the plain version, its time, the plain
 version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
-do over the peak rate of their type, for this run's inputs) and, where
+do over the peak rate of their type, for this run's inputs; for K4,
+whose walk is a serial chain, also the slowest lane's micro-steps at the
+least latency of one, ``latency_bound_ms``) and, where
 one PyTorch call computes the same function, that call's time (and for
-K1, K8, K5, K6 and K9 the kernel's device time, ``device_ms``; for K1
+K1, K8, K5, K6, K9 and K4 the kernel's device time, ``device_ms``; for K1
 also its search launch's and spin passes' device times, the search's
 bound and, as its yardstick, torch.fft.fft over all bins of the same
 rows, ``search_*``); last,
@@ -74,8 +78,9 @@ NOISE_THRESHOLD = 110000.0
 # card's own power limit is printed beside the results).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # FMA counted as two operations
-# INT32 lanes: 132 SMs x 64 x 1.98 GHz boost clock
-I32_OPS_PER_S = 132 * 64 * 1.98e9
+# the SM boost clock, and the INT32 lanes: 132 SMs x 64 at that clock
+SM_CLOCK_HZ = 1.98e9
+I32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # int16 operations on the same lanes packed two to a word (VIADD.16x2,
 # VIMNMX.S16x2)
 I16X2_OPS_PER_S = 2 * I32_OPS_PER_S
@@ -87,6 +92,15 @@ I16X2_OPS_PER_S = 2 * I32_OPS_PER_S
 # bookkeeping) int32 operations, address arithmetic excluded
 ACS_OPS_PER_PAIR = 6
 FANO_OPS_PER_STEP = 30
+# The least latency, in SM clock cycles, of one Fano micro-step's
+# dependent chain on sm_90, whatever the design: a lane's walk is serial
+# and each micro-step needs a value the step before it chose, at least
+# one shared-memory or L1 load (~30 cycles: the next node's metrics on an
+# advance, the record a backtrack lands on) plus the forward look's
+# dependent add, compare and select (~4 cycles each) before the next
+# step can start: ~40 cycles.  A launch can end no sooner than its
+# slowest lane's micro-steps x this latency.
+FANO_STEP_CYCLES = 40
 # integer operations per butterfly of K10 in csrc/viterbi_acs.cu (two
 # AND+POPC+AND+XOR branch bits, two symbol selects, the adjust, the
 # complementary metric, four adds, two compares, two selects), address
@@ -161,13 +175,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float,
+          chain_cycles: float = 0.0) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    operations over the peak rate of their type, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger.
+    ``chain_cycles``, for a kernel whose work is a serial chain of
+    dependent operations (K4's walk), adds the latency term: the longest
+    chain's cycles at the SM clock (``latency_bound_ms``).  Those are
+    operations too, issued one after another, so a bound they set reads
+    "operations"."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_ops = max(ops / ops_per_s, chain_cycles / SM_CLOCK_HZ) * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if chain_cycles:
+        out["latency_bound_ms"] = chain_cycles / SM_CLOCK_HZ * 1e3
+    return out
 
 
 def dft_ops(n: int, K: int) -> float:
@@ -244,12 +267,10 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     inputs, at the main path's shapes.  Returns per-kernel records."""
     import torch
 
-    from isee3_decoder_tpu_torch.config import FRAMEBITS, SYNC_STATE
-    from isee3_decoder_tpu_torch.models.decode import DecodeConfig, _tail
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMEBITS
     from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
     from isee3_decoder_tpu_torch.ops import prefix_cuda
-    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
-    from isee3_decoder_tpu_torch.ops.fano import FanoParams, _walk_inputs
 
     out = {}
     cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
@@ -329,61 +350,68 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
     )
     del bb, cs_k, cs_p, flat
 
-    # ---- K4: the Fano walk alone — metric precompute and root setup are
-    # done once, outside the timed calls; bits and [np, gamma, cycles, t]
-    # exact
-    dcfg = DecodeConfig()
-    mettab = torch.as_tensor(dcfg.mettab(), device=dev)
-    rng = np.random.default_rng(4)
-
-    def walk_inputs(lanes: int, sigma: float):
-        from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
-
-        data = torch.as_tensor(random_frames(rng, lanes), device=dev)
-        syms, _ = encode_bits(bytes_to_bits(data), SYNC_STATE, dcfg.code)
-        noise = torch.as_tensor(rng.normal(0.0, sigma, syms.shape),
-                                dtype=torch.float32, device=dev)
-        soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise)
-                           + 128, 0, 255).to(torch.uint8)
-        return _walk_inputs(soft, mettab, FRAMEBITS, SYNC_STATE,
-                            _tail(dcfg.code), dcfg.code, None)
-
-    plain_fano_ms = 0.0
-    cases = ((walk_inputs(n_lanes, 75.0), dcfg.fano_params_tier1()),
-             (walk_inputs(16, 110.0), FanoParams(dcfg.fano_delta, 2)))
-    for (m4, regs), params in cases:
-        args = (m4, regs, dcfg.code, params.delta, params.maxcycles)
-        bits_k, st_k = fano_cuda.fano_walk(*args)
+    # ---- K4: the Fano walk alone, on both designs — metric precompute
+    # and root setup are done once, outside the timed calls; bits and
+    # [np, gamma, cycles, t] exact
+    dcfg, cases = k4_inputs(dev, n_lanes)
+    rec = {"max_abs_err": 0, "library_ms": None}
+    for name, m4, regs, maxcycles in cases:
+        args = (m4, regs, dcfg.code, dcfg.fano_delta, maxcycles)
         start, end = _events()
         start.record()
         bits_p, st_p = fano_cuda.fano_walk_plain(*args)  # slow: timed once
         end.record()
         torch.cuda.synchronize()
-        if m4.shape[0] == n_lanes:
-            plain_fano_ms = start.elapsed_time(end)
-        require(torch.equal(bits_k, bits_p), "K4 bits differ")
-        require(torch.equal(st_k, st_p), "K4 np/gamma/cycles/t differ")
-        nfail = int((st_k[:, 0] + 1 != FRAMEBITS).sum())
-        log(f"  K4 fano_walk: {m4.shape[0]} lanes at {params.maxcycles} "
-            f"cycles/bit: identical; {nfail} timed out, max cycles "
-            f"{int(st_k[:, 2].max())}")
-        if m4.shape[0] == 16:
+        steps = int(st_p[:, 2].max())  # the slowest lane's micro-steps
+        nfail = int((st_p[:, 0] + 1 != FRAMEBITS).sum())
+        for design in ("warp", "thread"):
+            bits_k, st_k = fano_cuda.fano_walk(*args, design=design)
+            require(torch.equal(bits_k, bits_p), f"K4 {design}: bits differ")
+            require(torch.equal(st_k, st_p),
+                    f"K4 {design}: np/gamma/cycles/t differ")
+            if name == "a":
+                ms = cuda_ms(lambda: fano_cuda.fano_walk(*args, design=design),
+                             5)
+                rec["ms" if design == "warp" else "thread_ms"] = ms
+        log(f"  K4 fano_walk ({name}): {m4.shape[0]} lanes at {maxcycles} "
+            f"cycles/bit: both designs identical; {nfail} timed out, max "
+            f"cycles {steps}")
+        if name == "b":
             require(nfail > 0, "K4 small batch has no timed-out lane")
-    (m4, regs), params = cases[0]
-    _, st = fano_cuda.fano_walk(m4, regs, dcfg.code, params.delta,
-                                params.maxcycles)
-    steps = int(st[:, 2].sum())  # micro-steps this run's lanes walk
-    out["fano_walk"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(lambda: fano_cuda.fano_walk(
-            m4, regs, dcfg.code, params.delta, params.maxcycles), 5),
-        plain_ms=plain_fano_ms,
-        library_ms=None,
-        **bound(m4.numel() * 4 + regs.numel() * 4 + m4.shape[0] * m4.shape[1]
-                + st.numel() * 4, steps * FANO_OPS_PER_STEP, I32_OPS_PER_S),
-    )
+            continue
+        fano_cuda.fano_walk(*args)
+        require(_kernels.backend_used.get("fano_walk") == "warp",
+                "K4: the plan did not pick the warp design")
+        rec.update(
+            plain_ms=start.elapsed_time(end), max_lane_steps=steps,
+            ns_per_step=rec["ms"] * 1e6 / steps,
+            thread_ns_per_step=rec["thread_ms"] * 1e6 / steps,
+            **bound(m4.numel() * 4 + regs.numel() * 4
+                    + m4.shape[0] * m4.shape[1] + st_p.numel() * 4,
+                    int(st_p[:, 2].sum()) * FANO_OPS_PER_STEP, I32_OPS_PER_S,
+                    steps * FANO_STEP_CYCLES))
+        log(f"  K4 at {m4.shape[0]} lanes: warp {rec['ms']:.4f} ms "
+            f"({rec['ns_per_step']:.1f} ns per micro-step), thread "
+            f"{rec['thread_ms']:.4f} ms ({rec['thread_ns_per_step']:.1f}); "
+            f"latency bound {rec['latency_bound_ms']:.4f} ms "
+            f"({steps} steps x {FANO_STEP_CYCLES} cycles)")
+    out["fano_walk"] = rec
     out.update(check_viterbi(dev))
     return out
+
+
+def k4_inputs(dev, n_lanes: int = 256):
+    """K4's calls as phase 2 makes them (kernel_turns.py builds the same
+    frames): (DecodeConfig(), [(name, metrics4, regs, cycles/bit)]): (a)
+    n_lanes lanes at sigma 75 and the tier-1 cap (12 cycles/bit), (b) 16
+    lanes at sigma 110 at 2 cycles/bit, some timing out."""
+    import torch
+
+    from isee3_decoder_tpu_torch.utils.kernel_turns import k4_walk_inputs
+
+    dcfg, a, b = k4_walk_inputs(torch, np, dev, n_lanes)
+    return dcfg, [("a", *a, dcfg.fano_params_tier1().maxcycles),
+                  ("b", *b, 2)]
 
 
 def k1_inputs(dev, nchan: int = NCHAN):
@@ -1536,7 +1564,7 @@ def kernels_device_ms(fn, reps: int) -> tuple[float, float, dict]:
 
 
 def profile_kernels(dev, checks: dict, batch: int) -> None:
-    """Phase 12: the device time of K1, K8, K5, K6 and K9 from
+    """Phase 12: the device time of K1, K8, K5, K6, K9 and K4 from
     torch.profiler, beside their CUDA-event times of phase 2 and 5 (the
     profiler's hooks slow every later launch of the process, so this runs
     after every timed block).  K8 at the narrowband shape, with
@@ -1545,11 +1573,11 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
     and the two spin passes, timed apart, with torch.fft.fft over all bins
     of the same rows; K5/K6 over one K=24 cycle at B=2 and at the threshold
     block's batch (the record keeps the latter); K9 at the bench shape of
-    phase 2."""
+    phase 2; K4 at phase 2's case (a), 256 lanes at 12 cycles/bit."""
     import torch
 
     from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
-    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
     from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
 
     _, _, raw, search = k8_inputs(dev)
@@ -1612,12 +1640,22 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         PROFILE_CALLS, "pm_scan_kernel")
     checks["pm_scan"]["device_ms"] = k9_dev
     del args
+    # K4 at phase 2's case (a): its one launch on the warp design
+    dcfg, cases = k4_inputs(dev)
+    _, m4, regs, maxcycles = cases[0]
+    k4_dev = kernel_device_ms(
+        lambda: fano_cuda.fano_walk(m4, regs, dcfg.code, dcfg.fano_delta,
+                                    maxcycles),
+        PROFILE_CALLS, "fano_warp_kernel")
+    checks["fano_walk"]["device_ms"] = k4_dev
+    del m4, regs, cases
     log(f"phase 12 device time (torch.profiler): K8 {k8_dev:.5f} ms in one "
         f"kernel per call, torch.fft.fft {fft_dev:.5f} ms (all {nbins} bins); "
         f"K5/K6 at K=24: "
         + ", ".join(f"B={B} {a:.4f} / {b:.4f} ms" for B, (a, b)
                     in dev_ms.items())
-        + f"; K9 at {NCHAN} x 32 x 65,536, K = 107: {k9_dev:.4f} ms")
+        + f"; K9 at {NCHAN} x 32 x 65,536, K = 107: {k9_dev:.4f} ms; K4 "
+        f"(warp) at 256 lanes, 12 cycles/bit: {k4_dev:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -1912,6 +1950,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     require(launches_mid["fano_walk"] > 0, "mid regime: K4 never launched")
     require(backends_mid.get("fano") == "cuda", "mid regime: Fano not on CUDA")
+    require(backends_mid.get("fano_walk") == "warp",
+            "mid regime: K4 did not walk by its warp design")
     profile_block(iq, nframes, mid, "mid")
     del iq
 
@@ -1943,6 +1983,9 @@ def main() -> int:
             "threshold regime: K5/K6 never launched")
     require(backends_thr.get("viterbi") == "cuda",
             "threshold regime: Viterbi not on CUDA")
+    require(launches_thr["fano_walk"] > 0
+            and backends_thr.get("fano_walk") == "warp",
+            "threshold regime: K4 did not walk by its warp design")
     # up to 2 of the Viterbi lanes again: kernels vs plain versions
     viterbi_lanes_check(iq, nframes, thr, rec, "threshold regime")
     # K5/K6 timed at the batch the main path's fallback ran
@@ -2007,6 +2050,8 @@ def main() -> int:
     designs = {
         "viterbi_b": "register stages: j steps by warp shuffles, decisions "
                      "by lane ballots, the row as int16 pairs",
+        "fano_walk": "one warp per lane: its metrics and tape in shared "
+                     "memory, backtrack runs by ballots",
     }
     kernels = [
         {
@@ -2022,7 +2067,9 @@ def main() -> int:
             **{key: checks[name][key] for key in (
                 "device_ms", "library_device_ms", "search_device_ms",
                 "spin_device_ms", "search_bound_ms", "search_library_ms",
-                "search_library_device_ms")
+                "search_library_device_ms", "latency_bound_ms",
+                "max_lane_steps", "ns_per_step", "thread_ms",
+                "thread_ns_per_step")
                if key in checks[name]},
         }
         for name in meta

@@ -52,7 +52,8 @@ LAUNCHES: dict[str, int] = {
 #: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi", and
 #: "search" for K8, "pm_scan" for K9) → "cuda" or "torch", last run;
 #: "pm_locked" reads K1's search design ("columns" or "direct",
-#: carrier_cuda.pm_locked_plan);
+#: carrier_cuda.pm_locked_plan); "fano_walk" reads K4's design ("warp"
+#: or "thread", fano_cuda.fano_walk_plan);
 #: "pm_scan" reads "fallback" when the fused scan's result was discarded
 #: for the block scan (carrier.pm_demod_scan_csum); "viterbi_path" reads
 #: "classic" (K10, ops/viterbi) or "fused" (K5/K6) for the Viterbi
@@ -80,9 +81,9 @@ _SIGNATURES = {
     # blocks, T, B, n, tail, out, stream
     "prefix_sum_launch": (_P, _I, _I, _I, _I, _P, _P),
     # metrics4, regs, B, N, tail_start, kb, delta, max_total, poly1,
-    # poly2, g1flip, g2flip, tape, bits, stats, stream
+    # poly2, g1flip, g2flip, warp_lanes, smem, tape, bits, stats, stream
     "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P),
+                         _I, _I, _P, _P, _P, _P),
     # metrics, syms, base, dec, dec_bstride, dec_tstride, B, rowb, colb,
     # nsteps, q1, q2, g1flip, g2flip, tiles, threads, smem, stream
     "viterbi_a_launch": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,

@@ -2,11 +2,14 @@
 
 Replaces the TPU kernel ``kernel`` inside ``_fano_walk_pallas``
 (isee3_decoder_tpu/ops/fano_pallas.py:106, entry ``fano_decode_pallas``);
-CUDA source csrc/fano.cu.  The plain version is the JAX package's
-lockstep walk (``ops/fano._fano_decode_packed``) in PyTorch: every lane
-makes one micro-step per loop iteration, a violating lane resolves its
-whole backtrack run in the same step through two masked reductions over
-a dense (gamma << 1) | ibr mirror of the tape.
+CUDA source csrc/fano.cu, in the design ``fano_walk_plan`` picks on
+shape: ``"warp"`` (one warp per lane, its metrics and tape in shared
+memory) wherever a lane fits there, ``"thread"`` (one thread per lane,
+the tape in global memory) for longer lanes.  The plain version is the
+JAX package's lockstep walk (``ops/fano._fano_decode_packed``) in
+PyTorch: every lane makes one micro-step per loop iteration, a violating
+lane resolves its whole backtrack run in the same step through two
+masked reductions over a dense (gamma << 1) | ibr mirror of the tape.
 
 Both take the per-lane root setup computed by ops/fano.py:
   metrics4 (B, N, 4) int32 branch metrics per node,
@@ -150,14 +153,70 @@ def fano_walk_plain(
     return bits, stats
 
 
+#: shared memory one block may take on the H100 (above 48 KB only as
+#: dynamic shared memory, after cudaFuncSetAttribute)
+SMEM_MAX = 232_448
+#: lanes a block of the "thread" design walks, one a thread
+THREAD_LANES = 32
+#: the most warps (lanes) a block of the "warp" design takes
+WARP_LANES_MAX = 32
+#: SMs of an H100 SXM, the plan's default
+NUM_SMS = 132
+
+
+def fano_walk_plan(B: int, N: int, code: CodeSpec, maxcycles: int,
+                   design: str | None = None, sms: int = NUM_SMS) -> dict:
+    """K4's launch plan (csrc/fano.cu ``fano_walk_launch``) for B lanes of
+    N nodes, chosen on shape:
+
+    - ``"warp"`` when one lane's branch metrics (N int4 records) and tape
+      (N + 1) fit in one block's shared memory, (2N + 1) x 16 bytes (N
+      up to 7263; the main path's frames are N = 1024, 32 KB): one warp
+      walks one lane, ``lanes`` warps a block, as many as spread the B
+      lanes evenly over ``sms`` SMs (at most what shared memory and 1024
+      threads allow), so no SM holds more lanes than it must;
+    - ``"thread"`` otherwise (e.g. hybridtest's long frames): one thread
+      walks one lane, 32 lanes a block, its tape in global memory.
+
+    ``design`` pins one of the two, for checks that hold both against the
+    plain version; "warp" raises where a lane does not fit.  Returns
+    ``design``, ``lanes`` (lanes a block), ``threads``, ``grid`` and
+    ``smem`` (dynamic shared bytes a block).  Lane b is warp (or thread)
+    b % lanes of block b // lanes.  Raises ValueError on what K4 does not
+    take: B < 1, N < K, maxcycles * N >= 2^31 (the cycle count is int32)
+    and codes of 30 or more state bits (the packed walk)."""
+    if code.kbits + 1 >= 31:
+        raise ValueError(f"{code.name}: the packed walk carries < 30 state bits")
+    if B < 1 or N < code.k or maxcycles * N >= 2**31:
+        raise ValueError(f"unsupported lanes={B} nbits={N} maxcycles={maxcycles}")
+    lane_smem = (2 * N + 1) * 16
+    if design is None:
+        design = "warp" if lane_smem <= SMEM_MAX else "thread"
+    if design == "thread":
+        return {"design": "thread", "lanes": THREAD_LANES,
+                "threads": THREAD_LANES, "grid": -(-B // THREAD_LANES),
+                "smem": 0}
+    if design != "warp":
+        raise ValueError(f"unknown K4 design {design!r}")
+    if lane_smem > SMEM_MAX:
+        raise ValueError(f"nbits={N}: a lane's metrics and tape, {lane_smem} "
+                         f"bytes, exceed one block's shared memory")
+    lanes = max(1, min(-(-B // sms), SMEM_MAX // lane_smem, WARP_LANES_MAX))
+    return {"design": "warp", "lanes": lanes, "threads": 32 * lanes,
+            "grid": -(-B // lanes), "smem": lanes * lane_smem}
+
+
 def fano_walk(
     metrics4: torch.Tensor,
     regs: torch.Tensor,
     code: CodeSpec,
     delta: int,
     maxcycles: int,
+    design: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: the whole Fano walk, one CUDA thread per lane."""
+    """K4: the whole Fano walk, in the design ``fano_walk_plan`` picks for
+    the shape (recorded in ``_kernels.backend_used["fano_walk"]``).
+    ``design`` pins one, for checks against the plain version only."""
     if not _kernels.use_kernel(metrics4):
         _kernels.note_backend("fano", "torch")
         return fano_walk_plain(metrics4, regs, code, delta, maxcycles)
@@ -169,21 +228,26 @@ def fano_walk(
         raise ValueError("regs must be (B, 5) int32 on metrics4's device")
     if not (metrics4.is_contiguous() and regs.is_contiguous()):
         raise ValueError("metrics4 and regs must be contiguous")
-    if code.kbits + 1 >= 31:
-        raise ValueError(f"{code.name}: the packed walk carries < 30 state bits")
-    if B < 1 or N < code.k or maxcycles * N >= 2**31:
-        raise ValueError(f"unsupported lanes={B} nbits={N} maxcycles={maxcycles}")
+    if delta < 1:
+        raise ValueError(f"delta = {delta} must be positive")
     dev = metrics4.device
-    tape = torch.empty((B, N + 1, 4), dtype=torch.int32, device=dev)
+    plan = fano_walk_plan(
+        B, N, code, maxcycles, design,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    warp = plan["design"] == "warp"
+    tape = (None if warp else
+            torch.empty((B, N + 1, 4), dtype=torch.int32, device=dev))
     bits = torch.empty((B, N), dtype=torch.uint8, device=dev)
     stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
     err = _kernels.lib().fano_walk_launch(
         metrics4.data_ptr(), regs.data_ptr(), B, N, N - (code.k - 1),
         code.kbits, delta, maxcycles * N, code.poly1, code.poly2,
-        code.g1flip, code.g2flip, tape.data_ptr(), bits.data_ptr(),
-        stats.data_ptr(), _kernels.stream_ptr(dev),
+        code.g1flip, code.g2flip, plan["lanes"] if warp else 0, plan["smem"],
+        None if warp else tape.data_ptr(), bits.data_ptr(), stats.data_ptr(),
+        _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "fano_walk_launch")
     _kernels.count_launch("fano_walk")
     _kernels.note_backend("fano", "cuda")
+    _kernels.note_backend("fano_walk", plan["design"])
     return bits, stats

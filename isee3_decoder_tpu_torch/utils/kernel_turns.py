@@ -1,7 +1,8 @@
-"""Time kernels K1, K8, K5, K6 and K9 of one checkout of the port, for
+"""Time kernels K1, K4, K8, K5, K6 and K9 of one checkout of the port, for
 comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
+        [--kernels k8,k5,k6,k9,k1,k4]
 
 imports ``isee3_decoder_tpu_torch`` from the checkout at DIR (this file
 imports nothing of the package before that, so it can time an older
@@ -22,7 +23,16 @@ tree), builds its kernels, and prints one JSON line:
 - K1 (``carrier_cuda.pm_locked_fused``, one locked pm block) at the bench
   shape, 128 x 65,536, K = 107, on a clean block: event ms and device ms
   per call, and the device ms of each kernel it launches (the search and
-  the spin passes apart).
+  the spin passes apart);
+- K4 (``fano_cuda.fano_walk``, the Fano walk alone, MCQLI-24 frames of
+  1024 bits from ``np.random.default_rng(4)`` as chip_smoke.py phase 2
+  builds them) in three cases: (a) 256 lanes at sigma 75 and the tier-1
+  cap, 12 cycles/bit; (b) 16 lanes at sigma 110 and the full budget,
+  100 cycles/bit, at least one lane timing out; (c) the slowest lane of
+  (a) alone.  Event ms and device ms per call, the largest lane's
+  micro-steps and ns per micro-step (event ms over those steps); (c)
+  against (a) separates one micro-step's latency from the cost of lanes
+  sharing a warp.
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
@@ -30,9 +40,11 @@ K5: bit for bit; K6: metrics, decision words and row minima bit for
 bit; K9: ok lanes and locks equal, frequency and centre
 within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB; K1:
 frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within 1e-2
-dB, baseband within 1 LSB).  Every CUDA-event time is taken before the
-first torch.profiler session, which slows every later launch of the
-process.  Needs a CUDA card; the card's nvidia-smi name and power limit
+dB, baseband within 1 LSB; K4: bits and [np, gamma, cycles, t] bit for
+bit, against ``fano_walk_plain`` run on the CPU once per set of inputs
+and kept in build/kernel_turns/ for the later turns of a call).  Every
+CUDA-event time is taken before the first torch.profiler session, which
+slows every later launch of the process.  Needs a CUDA card; the card's nvidia-smi name and power limit
 are in the line.
 """
 
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -98,11 +111,72 @@ def _device_ms(torch, fn, reps: int, warmup: int = 5) -> tuple[float, float, dic
     return sum(by_name.values()), count / reps, by_name
 
 
+KERNELS = ("k8", "k5", "k6", "k9", "k1", "k4")
+
+
+def k4_walk_inputs(torch, np, dev, lanes: int = 256):
+    """K4's inputs as chip_smoke.py phase 2 and this tool build them:
+    MCQLI-24 frames of 1024 bits from np.random.default_rng(4), BPSK at
+    amplitude 100 plus Gaussian noise, quantized to offset-binary soft
+    symbols → (DecodeConfig(), (metrics4, regs) of ``lanes`` lanes at
+    sigma 75, (metrics4, regs) of 16 lanes at sigma 110)."""
+    from isee3_decoder_tpu_torch.config import FRAMEBITS, SYNC_STATE
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig, _tail
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.ops.fano import _walk_inputs
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    dcfg = DecodeConfig()
+    mettab = torch.as_tensor(dcfg.mettab(), device=dev)
+    rng = np.random.default_rng(4)
+
+    def walk_inputs(n: int, sigma: float):
+        data = torch.as_tensor(random_frames(rng, n), device=dev)
+        syms, _ = encode_bits(bytes_to_bits(data), SYNC_STATE, dcfg.code)
+        noise = torch.as_tensor(rng.normal(0.0, sigma, syms.shape),
+                                dtype=torch.float32, device=dev)
+        soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise)
+                           + 128, 0, 255).to(torch.uint8)
+        return _walk_inputs(soft, mettab, FRAMEBITS, SYNC_STATE,
+                            _tail(dcfg.code), dcfg.code, None)
+
+    return dcfg, walk_inputs(lanes, 75.0), walk_inputs(16, 110.0)
+
+
+def _k4_plain(torch, fano_cuda, m4, regs, code, delta, maxcycles):
+    """fano_walk_plain's (bits, stats) for these inputs, run on the CPU
+    once and kept in build/kernel_turns/ under a hash of the inputs, so
+    the later turns of a call load it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (m4, regs):
+        h.update(t.cpu().numpy().tobytes())
+    h.update(f"{code.name} {delta} {maxcycles}".encode())
+    cache = (pathlib.Path(__file__).resolve().parents[2] / "build"
+             / "kernel_turns" / f"k4_plain_{h.hexdigest()[:16]}.pt")
+    if cache.exists():
+        bits, stats = torch.load(cache)
+    else:
+        bits, stats = fano_cuda.fano_walk_plain(m4.cpu(), regs.cpu(), code,
+                                                delta, maxcycles)
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        tmp = cache.with_suffix(f".{os.getpid()}.tmp")
+        torch.save((bits, stats), tmp)
+        os.replace(tmp, cache)
+    return bits.to(m4.device), stats.to(m4.device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True, help="checkout to import")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ",".join(KERNELS))
     args_cli = ap.parse_args()
+    want = set(args_cli.kernels.split(","))
+    if not want <= set(KERNELS):
+        ap.error(f"unknown kernels {sorted(want - set(KERNELS))}")
     sys.path.insert(0, str(pathlib.Path(args_cli.tree).resolve()))
 
     import numpy as np
@@ -113,7 +187,7 @@ def main() -> int:
         return 1
     from isee3_decoder_tpu_torch import _kernels
     from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
-    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda
+    from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
     from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
     from isee3_decoder_tpu_torch.utils.devicesignal import (
         random_frames,
@@ -125,163 +199,221 @@ def main() -> int:
     _kernels.lib()
     out = {"label": args_cli.label or args_cli.tree, "card": _card(),
            "package": str(pathlib.Path(_kernels.__file__).parent)}
-
-    # ---- K8 at the narrowband path's shape
-    B = 128
-    cfg = carrier.PMConfig(samprate=32768.0, binsize=8.0, search_width=200.0)
-    n, K = cfg.fftsize, carrier._window_bins(cfg)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(8)
-    frames = torch.as_tensor(random_frames(np.random.default_rng(8), B),
-                             device=dev)[:, None, :]
-    freqs = torch.as_tensor(4000.0 + 37.0 * np.arange(B), dtype=torch.float32,
-                            device=dev)
-    iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
-                              noise_std=2500.0)
-    raw = to_raw_int16(iq)
-    packed = carrier.pack_raw(raw)
-    carry = carrier.PMCarry(search_center=freqs,
-                            cn0=torch.full_like(freqs, 60.0))
-    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    search = (packed, first - 1, last - first, K, cfg.samprate,
-              cfg.actual_binsize)
-    s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*search)
-    s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*search)
-    rel = float((s_k - s_p).abs().max()) / float(s_p.abs().max())
-    ok8 = (bool(torch.equal(pk_k, pk_p)) and rel <= 1e-5
-           and float((f_k - f_p).abs().max()) <= 5e-3)
-    x = carrier.iq_from_interleaved(raw)
-
-    def k8():
-        carrier_cuda.windowed_search_raw(*search)
-
-    def fft():
-        torch.fft.fft(x, dim=-1)
-
     # (name, function, reps, record): every event time is taken first, in
     # this order, then every device time
     timed = []
-    out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8, "rel_err": rel}
-    timed += [("k8", k8, 50, out["k8"]), ("fft", fft, 50, out["k8"])]
+    oks = []
+
+    # ---- K8 at the narrowband path's shape
+    if "k8" in want:
+        B = 128
+        cfg = carrier.PMConfig(samprate=32768.0, binsize=8.0,
+                               search_width=200.0)
+        n, K = cfg.fftsize, carrier._window_bins(cfg)
+        gen.manual_seed(8)
+        frames = torch.as_tensor(random_frames(np.random.default_rng(8), B),
+                                 device=dev)[:, None, :]
+        freqs = torch.as_tensor(4000.0 + 37.0 * np.arange(B),
+                                dtype=torch.float32, device=dev)
+        iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
+                                  noise_std=2500.0)
+        raw = to_raw_int16(iq)
+        packed = carrier.pack_raw(raw)
+        carry = carrier.PMCarry(search_center=freqs,
+                                cn0=torch.full_like(freqs, 60.0))
+        first, last = carrier._search_window(carry.search_center, carry.cn0,
+                                              cfg)
+        search = (packed, first - 1, last - first, K, cfg.samprate,
+                  cfg.actual_binsize)
+        s_k, f_k, pk_k = carrier_cuda.windowed_search_raw(*search)
+        s_p, f_p, pk_p = carrier_cuda.windowed_search_raw_plain(*search)
+        rel = float((s_k - s_p).abs().max()) / float(s_p.abs().max())
+        ok8 = (bool(torch.equal(pk_k, pk_p)) and rel <= 1e-5
+               and float((f_k - f_p).abs().max()) <= 5e-3)
+        x = carrier.iq_from_interleaved(raw)
+
+        def k8():
+            carrier_cuda.windowed_search_raw(*search)
+
+        def fft():
+            torch.fft.fft(x, dim=-1)
+
+        out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8,
+                     "rel_err": rel}
+        timed += [("k8", k8, 50, out["k8"]), ("fft", fft, 50, out["k8"])]
+        oks.append(ok8)
 
     # ---- K5 over a whole K = 24 row phase at the threshold block's batch
     B = 10
     w, rowb, _ = vc._geometry(code)
-    gen.manual_seed(25)
-    m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen, device=dev,
-                       dtype=torch.int32).to(torch.int16)
-    syms = torch.randint(0, 256, (B, 2 * rowb), generator=gen, device=dev,
-                         dtype=torch.int32)
-    base = torch.randint(1, 600, (B,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    mk, mp = m0.clone(), m0.clone()
-    _, dk = vc.cycle_a(mk, syms, code, rowb, base)
-    _, dp = vc.cycle_a_plain(mp, syms, code, rowb, base)
-    ok5 = bool(torch.equal(mk, mp) and torch.equal(dk, dp))
-    da = torch.empty((B, rowb, code.nstates // 32), dtype=torch.int32,
-                     device=dev)
+    if "k5" in want:
+        gen.manual_seed(25)
+        m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int16)
+        syms = torch.randint(0, 256, (B, 2 * rowb), generator=gen, device=dev,
+                             dtype=torch.int32)
+        base = torch.randint(1, 600, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        mk, mp = m0.clone(), m0.clone()
+        _, dk = vc.cycle_a(mk, syms, code, rowb, base)
+        _, dp = vc.cycle_a_plain(mp, syms, code, rowb, base)
+        ok5 = bool(torch.equal(mk, mp) and torch.equal(dk, dp))
+        da = torch.empty((B, rowb, code.nstates // 32), dtype=torch.int32,
+                         device=dev)
 
-    def k5():
-        vc.cycle_a(mk, syms, code, rowb, base, da)
+        def k5():
+            vc.cycle_a(mk, syms, code, rowb, base, da)
 
-    out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5}
-    timed.append(("k5", k5, 20, out["k5"]))
-    del dk, dp, m0
+        out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5}
+        timed.append(("k5", k5, 20, out["k5"]))
+        oks.append(ok5)
+        del dk, dp, m0
 
     # ---- K6 over a whole K = 24 column phase at the same batch
-    nb = w - rowb
-    gen.manual_seed(26)
-    m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen, device=dev,
-                       dtype=torch.int32).to(torch.int16)
-    sb = torch.randint(0, 256, (B, 2 * nb), generator=gen, device=dev,
-                       dtype=torch.int32)
-    m6, m6p = m0.clone(), m0.clone()
-    _, dk, nk = vc.cycle_b(m6, sb, code, nb)
-    _, dp, npl = vc.cycle_b_plain(m6p, sb, code, nb)
-    ok6 = bool(torch.equal(m6, m6p) and torch.equal(dk, dp)
-               and torch.equal(nk, npl))
-    del dk, dp, m6p, m0
-    db = torch.empty((B, nb, code.nstates // 32), dtype=torch.int32,
-                     device=dev)
+    if "k6" in want:
+        nb = w - rowb
+        gen.manual_seed(26)
+        m0 = torch.randint(0, 12000, (B, code.nstates), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int16)
+        sb = torch.randint(0, 256, (B, 2 * nb), generator=gen, device=dev,
+                           dtype=torch.int32)
+        m6, m6p = m0.clone(), m0.clone()
+        _, dk, nk = vc.cycle_b(m6, sb, code, nb)
+        _, dp, npl = vc.cycle_b_plain(m6p, sb, code, nb)
+        ok6 = bool(torch.equal(m6, m6p) and torch.equal(dk, dp)
+                   and torch.equal(nk, npl))
+        del dk, dp, m6p, m0
+        db = torch.empty((B, nb, code.nstates // 32), dtype=torch.int32,
+                         device=dev)
 
-    def k6():
-        vc.cycle_b(m6, sb, code, nb, db)
+        def k6():
+            vc.cycle_b(m6, sb, code, nb, db)
 
-    out["k6"] = {"shape": f"K = 24, B = {B}, {nb} steps", "ok": ok6}
-    timed.append(("k6", k6, 20, out["k6"]))
+        out["k6"] = {"shape": f"K = 24, B = {B}, {nb} steps", "ok": ok6}
+        timed.append(("k6", k6, 20, out["k6"]))
+        oks.append(ok6)
 
-    # ---- K9 at the bench shape
-    B, T = 128, 32
-    cfg = carrier.PMConfig(samprate=250_000.0, binsize=4.0, search_width=200.0)
-    n, K = cfg.fftsize, carrier._window_bins(cfg)
-    frames = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
-        random_frames(np.random.default_rng(0), 4), (B, 4, 128))), device=dev)
-    freqs = torch.as_tensor(20_000.0 + 137.0 * np.arange(B),
-                            dtype=torch.float32, device=dev)
-    gen.manual_seed(9)
-    iq = synthesize_iq_device(frames, freqs, gen, T * n, samprate=cfg.samprate,
-                              symrate=1024.0, noise_std=2500.0)
-    blocks = to_raw_int16(iq).reshape(B, T, 2 * n)
-    del iq
-    carry1, out0 = carrier.pm_demod_block_raw(
-        carrier.init_carry(B, cfg, device=dev), blocks[:, 0], cfg)
-    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
-                        out0.carrier_freq, carry1.search_center], dim=1)
-    args = (carrier.pack_raw(blocks), out0.baseband, init, cfg.samprate,
-            cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
-    del blocks
-    cs_k, st_k, _ = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
-    cs_p, st_p, _ = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
-    bb_err = int(((cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16).int()
-                  - (cs_p[:, 1:] - cs_p[:, :-1]).to(torch.int16).int())
-                 .abs().max())
-    d = (st_k - st_p).abs().amax(dim=(0, 1))
-    thr = cfg.cn0_threshold
-    ok9 = (bool((st_k[:, 1:, 3] > 0).all())
-           and bool(torch.equal(st_k[..., 3], st_p[..., 3]))
-           and bool(torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr))
-           and float(d[2]) <= 5e-3 and float(d[5]) <= 5e-3
-           and float(d[1]) <= 1e-2 and bb_err <= 1)
-    del cs_k, cs_p, st_k, st_p
+    # ---- K9 and K1 at the bench shape
+    if want & {"k9", "k1"}:
+        B, T = 128, 32
+        cfg = carrier.PMConfig(samprate=250_000.0, binsize=4.0,
+                               search_width=200.0)
+        n, K = cfg.fftsize, carrier._window_bins(cfg)
+        frames = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+            random_frames(np.random.default_rng(0), 4), (B, 4, 128))),
+            device=dev)
+        freqs = torch.as_tensor(20_000.0 + 137.0 * np.arange(B),
+                                dtype=torch.float32, device=dev)
+    if "k9" in want:
+        gen.manual_seed(9)
+        iq = synthesize_iq_device(frames, freqs, gen, T * n,
+                                  samprate=cfg.samprate, symrate=1024.0,
+                                  noise_std=2500.0)
+        blocks = to_raw_int16(iq).reshape(B, T, 2 * n)
+        del iq
+        carry1, out0 = carrier.pm_demod_block_raw(
+            carrier.init_carry(B, cfg, device=dev), blocks[:, 0], cfg)
+        init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                            out0.carrier_freq, carry1.search_center], dim=1)
+        args = (carrier.pack_raw(blocks), out0.baseband, init, cfg.samprate,
+                cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold, K)
+        del blocks
+        cs_k, st_k, _ = carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+        cs_p, st_p, _ = carrier_cuda.pm_scan_locked_plain(*args, tail=1)
+        bb_err = int(((cs_k[:, 1:] - cs_k[:, :-1]).to(torch.int16).int()
+                      - (cs_p[:, 1:] - cs_p[:, :-1]).to(torch.int16).int())
+                     .abs().max())
+        d = (st_k - st_p).abs().amax(dim=(0, 1))
+        thr = cfg.cn0_threshold
+        ok9 = (bool((st_k[:, 1:, 3] > 0).all())
+               and bool(torch.equal(st_k[..., 3], st_p[..., 3]))
+               and bool(torch.equal(st_k[..., 1] > thr, st_p[..., 1] > thr))
+               and float(d[2]) <= 5e-3 and float(d[5]) <= 5e-3
+               and float(d[1]) <= 1e-2 and bb_err <= 1)
+        del cs_k, cs_p, st_k, st_p
 
-    def k9():
-        carrier_cuda.pm_scan_locked_fused(*args, tail=1)
+        def k9():
+            carrier_cuda.pm_scan_locked_fused(*args, tail=1)
 
-    out["k9"] = {"shape": f"{B} x {T} x {n}, K = {K}", "ok": ok9,
-                 "max_dfreq_hz": float(d[2]), "max_dcn0_db": float(d[1]),
-                 "max_dbaseband_lsb": bb_err}
-    timed.append(("k9", k9, 5, out["k9"]))
+        out["k9"] = {"shape": f"{B} x {T} x {n}, K = {K}", "ok": ok9,
+                     "max_dfreq_hz": float(d[2]), "max_dcn0_db": float(d[1]),
+                     "max_dbaseband_lsb": bb_err}
+        timed.append(("k9", k9, 5, out["k9"]))
+        oks.append(ok9)
 
     # ---- K1 at the bench shape: one clean block of locked carriers
-    gen.manual_seed(5)
-    iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
-                              symrate=1024.0, noise_std=2500.0)
-    raw1 = to_raw_int16(iq)
-    del iq
-    carry = carrier.PMCarry(search_center=freqs,
-                            cn0=torch.full_like(freqs, 60.0))
-    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    k1_args = (carrier.pack_raw(raw1), first - 1, last - first, K,
-               cfg.samprate, cfg.actual_binsize)
-    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*k1_args)
-    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*k1_args)
-    err1 = int((bb_k.int() - bb_p.int()).abs().max())
-    ok1 = (float((f_k - f_p).abs().max()) <= 5e-3
-           and bool(torch.allclose(a_k, a_p, rtol=1e-5, atol=0))
-           and float((c_k - c_p).abs().max()) <= 1e-2 and err1 <= 1)
-    out["k1"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok1,
-                 "max_dfreq_hz": float((f_k - f_p).abs().max()),
-                 "max_dbaseband_lsb": err1,
-                 "design": _kernels.backend_used.get("pm_locked")}
-    del bb_k, bb_p
+    if "k1" in want:
+        gen.manual_seed(5)
+        iq = synthesize_iq_device(frames, freqs, gen, n, samprate=cfg.samprate,
+                                  symrate=1024.0, noise_std=2500.0)
+        raw1 = to_raw_int16(iq)
+        del iq
+        carry = carrier.PMCarry(search_center=freqs,
+                                cn0=torch.full_like(freqs, 60.0))
+        first, last = carrier._search_window(carry.search_center, carry.cn0,
+                                              cfg)
+        k1_args = (carrier.pack_raw(raw1), first - 1, last - first, K,
+                   cfg.samprate, cfg.actual_binsize)
+        bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*k1_args)
+        bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*k1_args)
+        err1 = int((bb_k.int() - bb_p.int()).abs().max())
+        ok1 = (float((f_k - f_p).abs().max()) <= 5e-3
+               and bool(torch.allclose(a_k, a_p, rtol=1e-5, atol=0))
+               and float((c_k - c_p).abs().max()) <= 1e-2 and err1 <= 1)
+        out["k1"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok1,
+                     "max_dfreq_hz": float((f_k - f_p).abs().max()),
+                     "max_dbaseband_lsb": err1,
+                     "design": _kernels.backend_used.get("pm_locked")}
+        del bb_k, bb_p
 
-    def k1():
-        carrier_cuda.pm_locked_fused(*k1_args)
+        def k1():
+            carrier_cuda.pm_locked_fused(*k1_args)
 
-    timed.append(("k1", k1, 20, out["k1"]))
+        timed.append(("k1", k1, 20, out["k1"]))
+        oks.append(ok1)
+
+    # ---- K4: the Fano walk alone in cases (a), (b), (c)
+    if "k4" in want:
+        dcfg, a, b = k4_walk_inputs(torch, np, dev)
+        delta = dcfg.fano_delta
+        runs = []
+        for name, (m4, regs), maxcycles in (
+                ("a", a, dcfg.fano_params_tier1().maxcycles),
+                ("b", b, dcfg.fano_maxcycles)):
+            bits_p, st_p = _k4_plain(torch, fano_cuda, m4, regs, dcfg.code,
+                                     delta, maxcycles)
+            runs.append((name, m4, regs, maxcycles, bits_p, st_p))
+            if name == "a":  # (c): the lane of (a) that walks longest
+                i = int(st_p[:, 2].argmax())
+                runs.append(("c", m4[i:i + 1].contiguous(),
+                             regs[i:i + 1].contiguous(), maxcycles,
+                             bits_p[i:i + 1], st_p[i:i + 1]))
+        for name, m4, regs, maxcycles, bits_p, st_p in runs:
+            bits_k, st_k = fano_cuda.fano_walk(m4, regs, dcfg.code, delta,
+                                               maxcycles)
+            timed_out = int((st_p[:, 0] + 1 != m4.shape[1]).sum())
+            # (b) must hold a lane that walks its whole budget
+            ok4 = (bool(torch.equal(bits_k, bits_p)
+                        and torch.equal(st_k, st_p))
+                   and (name != "b" or timed_out > 0))
+            rec = {"lanes": m4.shape[0], "cycles_per_bit": maxcycles,
+                   "ok": ok4, "max_lane_steps": int(st_p[:, 2].max()),
+                   "timed_out": timed_out,
+                   "design": _kernels.backend_used.get("fano_walk",
+                                                       "thread")}
+            out[f"k4{name}"] = rec
+            oks.append(ok4)
+
+            def k4(m4=m4, regs=regs, maxcycles=maxcycles):
+                fano_cuda.fano_walk(m4, regs, dcfg.code, delta, maxcycles)
+
+            timed.append((f"k4{name}", k4, 5 if name == "b" else 10, rec))
 
     for name, fn, reps, rec in timed:
         rec["fft_ms" if name == "fft" else "ms"] = _event_ms(torch, fn, reps)
+        if name.startswith("k4"):
+            rec["ns_per_step"] = rec["ms"] * 1e6 / rec["max_lane_steps"]
     for name, fn, reps, rec in timed:
         dms, per_call, by_name = _device_ms(torch, fn, reps)
         if name == "fft":
@@ -290,7 +422,7 @@ def main() -> int:
             rec.update(device_ms=dms, kernels_per_call=per_call,
                        kernels=by_name)
     print(json.dumps(out), flush=True)
-    return 0 if ok8 and ok5 and ok6 and ok9 and ok1 else 1
+    return 0 if all(oks) else 1
 
 
 if __name__ == "__main__":

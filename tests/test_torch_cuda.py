@@ -15,13 +15,18 @@ import torch
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import CodeSpec, DEFAULT_CODE, SYNC_STATE
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
-from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, prefix_cuda
+from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
+from isee3_decoder_tpu_torch.ops import prefix_cuda
 from isee3_decoder_tpu_torch.ops import channelizer, channelizer_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda, viterbi_fused
 from isee3_decoder_tpu_torch.ops import viterbi, viterbi_acs_cuda
 from isee3_decoder_tpu_torch.models import legacy
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
-from isee3_decoder_tpu_torch.ops.fano import FanoParams, _fano_decode_packed
+from isee3_decoder_tpu_torch.ops.fano import (
+    FanoParams,
+    _fano_decode_packed,
+    _walk_inputs,
+)
 from isee3_decoder_tpu_torch.utils.devicesignal import (
     random_frames,
     synthesize_iq_device,
@@ -162,12 +167,85 @@ def test_k3_exact(dev, T, B, n, tail):
                        prefix_cuda.prefix_sum_blocks_plain(bb, tail))
 
 
-@pytest.mark.parametrize(
-    "code,nbits,lanes,sigma,maxcycles",
-    [(K7, 64, 37, 85.0, 6), (DEFAULT_CODE, 1024, 12, 80.0, 3)],
-    ids=["K7", "MCQLI24"],
-)
-def test_k4_exact(dev, code, nbits, lanes, sigma, maxcycles):
+# K4 cases: code, nbits, lanes, sigma, cycles/bit, share of lanes skipped
+# (decoded by a cheaper tier), whether the data ends in the zero tail the
+# walk forces (else no lane can finish and every live lane times out)
+K4_CASES = {
+    "K7": (K7, 64, 37, 85.0, 6, 0.2, False),
+    "MCQLI24": (DEFAULT_CODE, 1024, 12, 80.0, 3, 0.2, False),
+    # the full budget: some lanes decode after thousands of steps, others
+    # walk all 12,800
+    "full-budget": (DEFAULT_CODE, 128, 8, 95.0, 100, 0.2, True),
+    # 137 lanes: 2 a block on 132 SMs, the last block half empty
+    "ragged": (K7, 64, 137, 85.0, 6, 0.2, False),
+    "all-skipped": (K7, 64, 5, 85.0, 6, 1.0, False),
+    # a lane too long for shared memory: the plan picks "thread"
+    "long": (K7, 7300, 3, 40.0, 1, 0.0, False),
+}
+_K4_PLAIN: dict = {}
+
+
+def _k4_case(dev, name):
+    """(code, maxcycles, metrics4, regs, skip, plain bits, plain stats) of
+    a K4 case; the plain walk runs once per case."""
+    code, nbits, lanes, sigma, maxcycles, pskip, tail = K4_CASES[name]
+    rng = np.random.default_rng(nbits + lanes)
+    bits = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)), device=dev)
+    if tail:
+        bits[:, nbits - code.k + 1:] = 0
+    start = SYNC_STATE & ((1 << (code.k - 1)) - 1)
+    syms, _ = encode_bits(bits, start, code)
+    noise = torch.as_tensor(rng.normal(0, sigma, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    mettab = torch.as_tensor(DecodeConfig().mettab(), device=dev)
+    skip = torch.as_tensor(rng.random(lanes) < pskip, device=dev)
+    m4, regs = _walk_inputs(soft, mettab, nbits, start, 0, code, skip)
+    if name not in _K4_PLAIN:
+        _K4_PLAIN[name] = fano_cuda.fano_walk_plain(m4, regs, code, 32,
+                                                    maxcycles)
+    return (code, maxcycles, m4, regs, skip, *_K4_PLAIN[name])
+
+
+@pytest.mark.parametrize("design", ["warp", "thread"])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_exact(dev, case, design):
+    """Both designs give the plain walk's bits and [np, gamma, cycles, t]
+    on every lane, skipped ones included; "warp" pinned where a lane
+    does not fit in shared memory raises."""
+    code, maxcycles, m4, regs, skip, bits_p, st_p = _k4_case(dev, case)
+    B, N, _ = m4.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if design == "warp" and fano_cuda.fano_walk_plan(
+            B, N, code, maxcycles, sms=sms)["design"] == "thread":
+        with pytest.raises(ValueError, match="shared memory"):
+            fano_cuda.fano_walk(m4, regs, code, 32, maxcycles, design)
+        return
+    n0 = _kernels.LAUNCHES["fano_walk"]
+    bits_k, st_k = fano_cuda.fano_walk(m4, regs, code, 32, maxcycles, design)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fano_walk"] == n0 + 1
+    assert _kernels.backend_used["fano_walk"] == design
+    assert torch.equal(bits_k, bits_p)
+    assert torch.equal(st_k, st_p)
+    if case == "all-skipped":
+        assert bool(skip.all()) and not bool(st_k.any())
+    else:
+        live = ~skip
+        assert (st_k[live, 0] + 1 != N).any()  # a live lane timed out
+    if case == "full-budget":
+        assert (st_k[~skip, 0] + 1 == N).any()  # and one decoded
+    if case == "ragged" and design == "warp":
+        plan = fano_cuda.fano_walk_plan(B, N, code, maxcycles, sms=sms)
+        assert B % plan["lanes"] != 0
+
+
+@pytest.mark.parametrize("code,nbits,lanes,sigma,maxcycles", [
+    (K7, 64, 37, 85.0, 6), (DEFAULT_CODE, 1024, 12, 80.0, 3),
+], ids=["K7", "MCQLI24"])
+def test_k4_decode_matches_plain(dev, code, nbits, lanes, sigma, maxcycles):
+    """The decoder around K4 (``_fano_decode_packed``: root setup, walk,
+    the bytes decode.c copies out) on the card == under plain_reference()."""
     rng = np.random.default_rng(nbits)
     bits = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)), device=dev)
     start = SYNC_STATE & ((1 << (code.k - 1)) - 1)
@@ -179,6 +257,7 @@ def test_k4_exact(dev, code, nbits, lanes, sigma, maxcycles):
     skip = torch.as_tensor(rng.random(lanes) < 0.2, device=dev)
     params = FanoParams(32, maxcycles)
     r_k = _fano_decode_packed(soft, mettab, nbits, start, 0, code, params, skip)
+    assert _kernels.backend_used["fano_walk"] == "warp"
     with _kernels.plain_reference():
         r_p = _fano_decode_packed(soft, mettab, nbits, start, 0, code, params,
                                   skip)
@@ -186,6 +265,23 @@ def test_k4_exact(dev, code, nbits, lanes, sigma, maxcycles):
     for field in ("bits", "goodbits", "metric", "cycles"):
         assert torch.equal(getattr(r_k, field)[live], getattr(r_p, field)[live])
     assert (r_k.goodbits[live] != nbits).any()
+
+
+@pytest.mark.parametrize("nbits", [64, 1024, 7263, 7264])
+def test_k4_wrapper_reports_the_plans_design(dev, nbits):
+    """The design fano_walk records (backend_used["fano_walk"]) is the one
+    fano_walk_plan picks for the shape."""
+    B = 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(nbits)
+    m4 = torch.randint(-40, 8, (B, nbits, 4), generator=gen, device=dev,
+                       dtype=torch.int32)
+    regs = torch.zeros((B, 5), dtype=torch.int32, device=dev)
+    fano_cuda.fano_walk(m4, regs, K7, 32, 1)
+    torch.cuda.synchronize()
+    want = "warp" if (2 * nbits + 1) * 16 <= 232_448 else "thread"
+    assert fano_cuda.fano_walk_plan(B, nbits, K7, 1)["design"] == want
+    assert _kernels.backend_used["fano_walk"] == want
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -18,8 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from isee3_decoder_tpu_torch.config import CodeSpec
-from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, viterbi_cuda
+from isee3_decoder_tpu_torch.config import DEFAULT_CODE, SYNC_STATE, CodeSpec
+from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
+from isee3_decoder_tpu_torch.ops import viterbi_cuda
+from isee3_decoder_tpu_torch.ops.encode import encode_bits
+from isee3_decoder_tpu_torch.ops.fano import _walk_inputs
 from isee3_decoder_tpu_torch.ops.viterbi_inplace import _branch_masks, _rotr
 
 SMEM_MAX = 232_448
@@ -760,3 +764,282 @@ def test_k1_column_split_matches_fft_and_plain(n, K, first, doppler):
     plain = carrier_cuda.pm_locked_bins_plain(
         carrier.pack_raw(torch.as_tensor(raw)), first1, K, dop=dop)
     assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
+
+
+# ---------------------------------------------------------------- K4 plan
+
+K7 = CodeSpec("TESTK7", 0o171, 0o133, 7, 0, 0)
+
+
+@pytest.mark.parametrize("code", [K7, DEFAULT_CODE], ids=["K7", "MCQLI24"])
+@pytest.mark.parametrize("B,N", [(1, 1024), (12, 1024), (137, 1024),
+                                 (256, 1024), (1000, 1024), (5000, 64),
+                                 (37, 7263), (37, 7264), (3, 20000)])
+def test_k4_plan_covers_every_lane_once(code, B, N):
+    """Every lane is walked by exactly one warp (or thread) of one block;
+    a block's shared memory holds its lanes' metrics and tapes within
+    one block's limit; the "warp" design spreads the lanes over the SMs
+    (no block holds more lanes than ⌈B / 132⌉ unless shared memory or
+    1024 threads cap it)."""
+    if N < code.k:
+        pytest.skip("shorter than the code")
+    plan = fano_cuda.fano_walk_plan(B, N, code, 12)
+    lanes = plan["lanes"]
+    seen = np.zeros(B, dtype=np.int64)
+    for blk in range(plan["grid"]):
+        for w in range(lanes):
+            if blk * lanes + w < B:
+                seen[blk * lanes + w] += 1
+    assert (seen == 1).all()
+    assert (plan["grid"] - 1) * lanes < B
+    assert plan["smem"] <= SMEM_MAX and plan["threads"] <= 1024
+    if plan["design"] == "warp":
+        lane_smem = (2 * N + 1) * 16
+        assert plan["threads"] == 32 * lanes
+        assert plan["smem"] == lanes * lane_smem
+        assert lanes == min(-(-B // 132), SMEM_MAX // lane_smem, 32)
+    else:
+        assert plan == {"design": "thread", "lanes": 32, "threads": 32,
+                        "grid": -(-B // 32), "smem": 0}
+
+
+@pytest.mark.parametrize("N", [24, 1024, 4096, 7263, 7264, 8192, 20000])
+def test_k4_plan_picks_thread_exactly_when_a_lane_does_not_fit(N):
+    """"warp" wherever one lane's metrics and tape, (2N + 1) x 16 bytes,
+    fit in one block's shared memory; "thread" exactly where they do not,
+    and pinning "warp" there raises."""
+    fits = (2 * N + 1) * 16 <= SMEM_MAX
+    plan = fano_cuda.fano_walk_plan(8, N, DEFAULT_CODE, 12)
+    assert plan["design"] == ("warp" if fits else "thread")
+    assert fano_cuda.fano_walk_plan(8, N, DEFAULT_CODE, 12,
+                                    "thread")["design"] == "thread"
+    if fits:
+        assert fano_cuda.fano_walk_plan(8, N, DEFAULT_CODE, 12,
+                                        "warp")["design"] == "warp"
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            fano_cuda.fano_walk_plan(8, N, DEFAULT_CODE, 12, "warp")
+
+
+@pytest.mark.parametrize("B,N,code,maxcycles,match", [
+    (0, 1024, DEFAULT_CODE, 12, "unsupported"),
+    (4, 23, DEFAULT_CODE, 12, "unsupported"),
+    (4, 1024, DEFAULT_CODE, 2**21, "unsupported"),
+    (4, 1024, CodeSpec("TESTK31", (1 << 30) | 1, (1 << 30) | 3, 31, 0, 0),
+     12, "state bits"),
+    (4, 1024, DEFAULT_CODE, 12, "unknown K4 design"),
+])
+def test_k4_plan_refuses_what_k4_does_not_take(B, N, code, maxcycles, match):
+    design = "lanes" if match == "unknown K4 design" else None
+    with pytest.raises(ValueError, match=match):
+        fano_cuda.fano_walk_plan(B, N, code, maxcycles, design)
+
+
+def _k4_serial_scan(T, np_, t, tail_start, kb):
+    """The "thread" design's backward scan (csrc/fano.cu fano_kernel):
+    the first record from the top with gamma < t relaxes at j + 1, the
+    first untried branch below the tail toggles at j → (target, toggle,
+    records read)."""
+    for j in range(np_ - 1, -1, -1):
+        if T[j, 0] < t:
+            return j + 1, False, np_ - j
+        if j < tail_start and (T[j, 3] >> kb) == 0:
+            return j, True, np_ - j
+    return 0, False, np_
+
+
+def _k4_ballot_search(T, np_, t, tail_start, kb):
+    """numpy mirror of the "warp" design's search (csrc/fano.cu
+    fano_warp_kernel): lane i reads record top - i, two ballots, the
+    lowest set lane of either decides (relax where its relax bit is set)
+    → (target, toggle, 32-record chunks read)."""
+    lane = np.arange(32)
+    top, chunks = np_ - 1, 0
+    while top >= 0:
+        chunks += 1
+        j = top - lane
+        valid = j >= 0
+        rec = T[np.maximum(j, 0)]
+        relax_bits = int(((valid & (rec[:, 0] < t)).astype(np.int64)
+                          << lane).sum())
+        toggle = valid & (j < tail_start) & ((rec[:, 3] >> kb) == 0)
+        hits = relax_bits | int((toggle.astype(np.int64) << lane).sum())
+        if hits:
+            i = (hits & -hits).bit_length() - 1
+            tog = not (relax_bits >> i) & 1
+            return (top - i if tog else top - i + 1), tog, chunks
+        top -= 32
+    return 0, False, chunks
+
+
+def _k4_max_rule(T, np_, t, tail_start, kb):
+    """The JAX walk's rule (fano_pallas.py:146-158): jr, jt the last
+    nodes below np with gamma < t and with an untried branch below the
+    tail; toggle at jt when jt > jr, else relax at jr + 1."""
+    j = np.arange(np_)
+    jr = int(j[T[:np_, 0] < t].max(initial=-1))
+    jt = int(j[(j < tail_start) & ((T[:np_, 3] >> kb) == 0)].max(initial=-1))
+    return (jt, True) if jt > jr else (jr + 1, False)
+
+
+def _k4_warp_walk(m4, regs, code, delta, maxcycles, seen):
+    """Python mirror of the "warp" design's walk, lane by lane: the
+    tightening by mask (delta a power of two); the symbol pair of the
+    next advance carried from the last one; the top record (node np - 1)
+    kept in registers, so a backtrack run that ends there (relax where
+    the walk stands, or toggle the top record) reads no tape; the ballot
+    search over the records below it otherwise.  At every violation the
+    outcome is held against the serial scan and the JAX rule on the tape
+    as it stands; ``seen`` counts the violations by kind → (bits (B, N)
+    uint8, stats (B, 4) int32)."""
+    B, N, _ = m4.shape
+    kb, tail_start = code.kbits, N - (code.k - 1)
+    encmask = (1 << kb) - 1
+    assert delta & (delta - 1) == 0
+    p1 = (code.poly1 >> 1) & (encmask >> 1)
+    p2 = (code.poly2 >> 1) & (encmask >> 1)
+    q1, q2 = p1 & 1, p2 & 1
+    bits = np.zeros((B, N), dtype=np.uint8)
+    stats = np.zeros((B, 4), dtype=np.int32)
+
+    def par(x):
+        return bin(x).count("1") & 1
+
+    def pair(e):  # the symbol pair of an advance from state e
+        return ((par(e & p1) << 1) ^ code.g1flip) | (par(e & p2) ^ code.g2flip)
+
+    for b in range(B):
+        tm0, tm1, enc, skip, tailbits = (int(v) for v in regs[b])
+        T = np.zeros((N + 1, 4), dtype=np.int64)
+        np_ = t = cycles = g = ibr = 0
+        top = (0, 0, 0, 0)  # the record of node np - 1, for np >= 1
+        ls, tmc = pair(enc), tm0
+        while not skip:
+            adv = (enc << 1) & encmask
+            # the pair of the advance after the next, for either new bit,
+            # from the parities of adv: parity((adv | 1) & p) flips by p & 1
+            pa1, pa2 = par(adv & p1), par(adv & p2)
+            ls0 = ((pa1 << 1) ^ code.g1flip) | (pa2 ^ code.g2flip)
+            ls1 = (((pa1 ^ q1) << 1) ^ code.g1flip) | (pa2 ^ q2 ^ code.g2flip)
+            assert (ls0, ls1) == (pair(adv), pair(adv | 1))
+            ngamma = g + tmc
+            if ngamma >= t:
+                t_fwd = t + ((ngamma - t) & -delta) if g < t + delta else t
+                assert t_fwd == (t + delta * ((ngamma - t) // delta)
+                                 if g < t + delta else t)
+                if np_ == N - 1:
+                    t = t_fwd
+                    cycles += 1
+                    break
+                top = (g, tm0, tm1, (ibr << kb) | enc)
+                T[np_] = top
+                m = [int(v) for v in m4[b, np_ + 1]]
+                if np_ + 1 >= tail_start:
+                    bit = (tailbits >> min(max(N - np_ - 2, 0), 31)) & 1
+                    a0 = a1 = m[(bit * 3) ^ ls]
+                else:
+                    a0, a1 = m[ls], m[3 ^ ls]
+                    bit = int(a1 >= a0)
+                tm0, tm1 = max(a0, a1), min(a0, a1)
+                tmc, enc, ls = tm0, adv | bit, ls1 if bit else ls0
+                g, ibr, np_, t = ngamma, 0, np_ + 1, t_fwd
+            else:
+                serial = _k4_serial_scan(T, np_, t, tail_start, kb)
+                rule = _k4_max_rule(T, np_, t, tail_start, kb)
+                seen["violations"] += 1
+                seen["np_below_32"] += np_ < 32
+                seen["in_tail"] += np_ > tail_start
+                if np_ == 0 or top[0] < t:  # relax where the walk stands
+                    assert np_ == 0 or top == tuple(T[np_ - 1])
+                    target, toggle = np_, False
+                    seen["relax_top"] += 1
+                    enc ^= int(ibr != 0)
+                    ibr, tmc, t = 0, tm0, t - delta
+                else:
+                    if np_ - 1 < tail_start and (top[3] >> kb) == 0:
+                        target, toggle = np_ - 1, True  # toggle the top
+                        seen["toggle_top"] += 1
+                    else:  # ballots over the records below the top
+                        target, toggle, chunks = _k4_ballot_search(
+                            T, np_ - 1, t, tail_start, kb)
+                        seen["ballot"] += 1
+                        seen["chunks"] = max(seen["chunks"], chunks)
+                    rec = tuple(int(v) for v in T[target])
+                    bibr = rec[3] >> kb
+                    g, tm0, tm1 = rec[0], rec[1], rec[2]
+                    enc = (rec[3] & encmask) ^ int(toggle or bibr != 0)
+                    ibr = bibr + 1 if toggle else 0
+                    tmc = tm1 if toggle else tm0
+                    t = t if toggle else t - delta
+                    np_ = target
+                    top = (tuple(int(v) for v in T[np_ - 1]) if np_ >= 1
+                           else (0, 0, 0, 0))
+                assert (target, toggle) == serial[:2] == rule
+                ls = pair(enc)
+            cycles += 1
+            if cycles >= maxcycles * N:
+                break
+        bits[b, :np_] = T[:np_, 3] & 1
+        if np_ < N:
+            bits[b, np_] = enc & 1
+        stats[b] = (np_, g, cycles, t)
+    return bits, stats
+
+
+@pytest.mark.parametrize("code,nbits,lanes,sigma,maxcycles", [
+    (K7, 64, 37, 85.0, 6),
+    (DEFAULT_CODE, 1024, 6, 60.0, 3),
+    (DEFAULT_CODE, 64, 8, 95.0, 12),
+], ids=["K7", "MCQLI24", "MCQLI24-short"])
+def test_k4_ballot_search_matches_the_serial_scan(code, nbits, lanes, sigma,
+                                                  maxcycles):
+    """On tapes recorded from real seeded walks, the "warp" design's
+    search (the top record from registers, then ballots below it) finds
+    the serial scan's target and toggle (and the JAX walk's jr/jt
+    rule's) at every violation, including nodes in the tail and np < 32;
+    the mirror walk gives fano_walk_plain's bits and [np, gamma, cycles,
+    t]."""
+    rng = np.random.default_rng(nbits + lanes)
+    data = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)))
+    start = SYNC_STATE & ((1 << (code.k - 1)) - 1)
+    syms, _ = encode_bits(data, start, code)
+    noise = torch.as_tensor(rng.normal(0, sigma, syms.shape))
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise)
+                       + 128, 0, 255).to(torch.uint8)
+    mettab = torch.as_tensor(DecodeConfig().mettab())
+    skip = torch.as_tensor(rng.random(lanes) < 0.15)
+    m4, regs = _walk_inputs(soft, mettab, nbits, start, 0, code, skip)
+    seen = dict(violations=0, np_below_32=0, in_tail=0, relax_top=0,
+                toggle_top=0, ballot=0, chunks=0)
+    bits, stats = _k4_warp_walk(m4.numpy(), regs.numpy(), code, 32, maxcycles,
+                                seen)
+    bits_p, stats_p = fano_cuda.fano_walk_plain(m4, regs, code, 32, maxcycles)
+    assert np.array_equal(bits, bits_p.numpy())
+    assert np.array_equal(stats, stats_p.numpy())
+    assert seen["violations"] > 100
+    assert min(seen["relax_top"], seen["toggle_top"], seen["ballot"]) > 0
+    assert seen["np_below_32"] > 0 and seen["in_tail"] > 0
+    assert (stats[:, 0] + 1 != nbits).any()  # a lane timed out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k4_ballot_search_on_sparse_tapes(seed):
+    """Tapes whose hits lie deep (beyond the first 32 records, or none at
+    all), with relax and toggle on one record: the ballot search walks
+    down 32 records at a time and agrees with the serial scan and the JAX
+    rule on every (np, t)."""
+    rng = np.random.default_rng(seed)
+    kb, n = 24, 200
+    tail_start = n - 23
+    gam = rng.integers(0, 400, n + 1)
+    ibr = (rng.random(n + 1) < 0.97).astype(np.int64)  # mostly tried
+    T = np.stack([gam, np.zeros_like(gam), np.zeros_like(gam),
+                  (ibr << kb) | rng.integers(0, 1 << kb, n + 1)], axis=1)
+    deep = 0
+    for np_ in range(0, n + 1):
+        for t in (-10, 5, 60, 200, 401):
+            got = _k4_ballot_search(T, np_, t, tail_start, kb)
+            assert got[:2] == _k4_serial_scan(T, np_, t, tail_start, kb)[:2]
+            assert got[:2] == _k4_max_rule(T, np_, t, tail_start, kb)
+            deep += got[2] > 1
+    assert deep > 0
