@@ -26,8 +26,11 @@ against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
 CLI in a subprocess.  Last, after every timed block, the device time of
-kernels K1 (its search launch and spin passes apart), K8, K5, K6, K9 and
-K4 under torch.profiler (phase 12).  K4 is checked on both its designs
+kernels K1 (its search launch and spin-down apart), K2, K8, K5, K6, K9
+and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
+checked on both designs ("cluster", one thread-block cluster per
+channel, which the main path takes, and "two_pass", for rows longer than
+a cluster holds).  K4 is checked on both its designs
 ("warp", one warp per lane, which the main path takes, and "thread",
 one thread per lane, for lanes too long for shared memory).
 Fails (non-zero exit, no result line) without a CUDA device, on a build
@@ -42,8 +45,9 @@ do over the peak rate of their type, for this run's inputs; for K4,
 whose walk is a serial chain, also the slowest lane's micro-steps at the
 least latency of one, ``latency_bound_ms``) and, where
 one PyTorch call computes the same function, that call's time (and for
-K1, K8, K5, K6, K9 and K4 the kernel's device time, ``device_ms``; for K1
-also its search launch's and spin passes' device times, the search's
+K1, K2, K8, K5, K6, K9 and K4 the kernel's device time, ``device_ms``;
+for K2 also the "two_pass" design's time, ``two_pass_ms``; for K1 also
+its search launch's and spin-down's device times, the search's
 bound and, as its yardstick, torch.fft.fft over all bins of the same
 rows, ``search_*``); last,
 the JSON line {"ok": true, "device": {...}}.  Phases 3 to 6, 9, 10 and
@@ -234,7 +238,8 @@ def check_k1(args, binsize: float, design: str, label: str) -> int:
     """K1 (pm_locked_fused) against its plain version on ``args``, with
     the tolerances of tests/test_carrier_raw.py: peak bins equal,
     frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within
-    1e-2 dB, baseband within 1 LSB; the wrapper must report ``design``.
+    1e-2 dB, baseband within 1 LSB; the wrapper must report ``design``
+    and the "cluster" spin-down.
     Returns the baseband's largest difference in LSB."""
     import torch
 
@@ -243,23 +248,61 @@ def check_k1(args, binsize: float, design: str, label: str) -> int:
 
     bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
     got = _kernels.backend_used.get("pm_locked")
+    spin = _kernels.backend_used.get("spin")
     bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
     pk_k = torch.round(f_k / binsize)
     pk_p = torch.round(f_p / binsize)
     err = int((bb_k.int() - bb_p.int()).abs().max())
-    log(f"  {label} ({got} design): peak bins equal "
+    log(f"  {label} ({got} design, spin-down {spin}): peak bins equal "
         f"{bool((pk_k == pk_p).all())}, "
         f"max |dfreq| {float((f_k - f_p).abs().max()):.3e} Hz, "
         f"max amp rel {float(((a_k - a_p) / a_p).abs().max()):.3e}, "
         f"max |dcn0| {float((c_k - c_p).abs().max()):.3e} dB, "
         f"max |dbaseband| {err} LSB")
     require(got == design, f"{label}: the {got} design ran, not {design}")
+    require(spin == "cluster", f"{label}: the spin-down ran on {spin}")
     require(bool((pk_k == pk_p).all()), f"{label}: peak bins differ")
     require(float((f_k - f_p).abs().max()) <= 5e-3, f"{label}: freq off")
     require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), f"{label}: amp off")
     require(float((c_k - c_p).abs().max()) <= 1e-2, f"{label}: cn0 off")
     require(err <= 1, f"{label}: baseband off by more than 1 LSB")
     return err
+
+
+def check_k2(packed, f, samprate: float, shape: str = "") -> int:
+    """K2 (spin_down_fused) on both its designs against its plain version
+    on the same inputs, with the tolerances of tests/test_carrier_raw.py:
+    amplitude within rtol 1e-5, C/N0 within 1e-2 dB, baseband within 1
+    LSB; the wrapper must report the design pinned, and take "cluster"
+    unpinned.  Returns the baseband's largest difference in LSB."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.ops import carrier_cuda
+
+    shape = shape or " x ".join(map(str, packed.shape))
+    bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, samprate)
+    worst = 0
+    for design in ("cluster", "two_pass", None):
+        bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, samprate,
+                                                      design=design)
+        got = _kernels.backend_used.get("spin")
+        err = int((bb_k.int() - bb_p.int()).abs().max())
+        log(f"  K2 spin_down at {shape} ({got} design"
+            f"{'' if design else ', unpinned'}): max amp rel "
+            f"{float(((a_k - a_p) / a_p).abs().max()):.3e}, max |dcn0| "
+            f"{float((c_k - c_p).abs().max()):.3e} dB, max |dbaseband| "
+            f"{err} LSB")
+        require(got == (design or "cluster"),
+                f"K2 at {shape}: the {got} design ran, not {design}")
+        require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0),
+                f"K2 at {shape} on {got}: amp off")
+        require(float((c_k - c_p).abs().max()) <= 1e-2,
+                f"K2 at {shape} on {got}: cn0 off")
+        require(err <= 1, f"K2 at {shape} on {got}: baseband off by more "
+                "than 1 LSB")
+        worst = max(worst, err)
+    return worst
 
 
 def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
@@ -304,28 +347,33 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
         f"its bound {r['search_bound_ms']:.4f} ms")
     del iq, args
 
-    # ---- K2: spin-down at a given carrier
+    # ---- K2: spin-down at a given carrier, on both designs, at the bench
+    #      shape and at the narrowband path's 128 x 4096
     f = carriers + 0.125
-    bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, cfg.samprate)
-    bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, cfg.samprate)
-    err = int((bb_k.int() - bb_p.int()).abs().max())
-    log(f"  K2 spin_down: max amp rel "
-        f"{float(((a_k - a_p) / a_p).abs().max()):.3e}, max |dcn0| "
-        f"{float((c_k - c_p).abs().max()):.3e} dB, max |dbaseband| {err} LSB")
-    require(torch.allclose(a_k, a_p, rtol=1e-5, atol=0), "K2 amp off")
-    require(float((c_k - c_p).abs().max()) <= 1e-2, "K2 cn0 off")
-    require(err <= 1, "K2 baseband off by more than 1 LSB")
+    err = check_k2(packed, f, cfg.samprate)
     out["spin_down"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: carrier_cuda.spin_down_fused(packed, f,
                                                         cfg.samprate), 20),
         plain_ms=cuda_ms(lambda: carrier_cuda.spin_down_plain(
             packed, f, cfg.samprate), 5),
+        two_pass_ms=cuda_ms(lambda: carrier_cuda.spin_down_fused(
+            packed, f, cfg.samprate, design="two_pass"), 20),
         library_ms=None,
-        # phase step and complex rotation per sample (sincos not counted)
+        # packed words in, int16 out; the phase step and complex rotation
+        # per sample (sincos not counted)
         **bound(nchan * n * (4 + 2), 8.0 * nchan * n, F32_OPS_PER_S),
     )
-    del packed
+    r = out["spin_down"]
+    log(f"  K2 {r['ms']:.4f} ms on cluster (two_pass "
+        f"{r['two_pass_ms']:.4f}, plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    _, nb_raw, nb_car = bench_block(dev, nchan, 4096, NOISE_CLEAN, seed=8,
+                                    samprate=NB_SAMPRATE,
+                                    carrier0=NB_CARRIER0, spacing=NB_SPACING)
+    check_k2(carrier.pack_raw(nb_raw), nb_car + 0.125, NB_SAMPRATE,
+             f"{nchan} x 4096")
+    del packed, nb_raw
 
     # ---- K3: prefix sum, exact, at T=32 blocks (8.4 s of signal)
     gen = torch.Generator(device=dev)
@@ -1564,14 +1612,15 @@ def kernels_device_ms(fn, reps: int) -> tuple[float, float, dict]:
 
 
 def profile_kernels(dev, checks: dict, batch: int) -> None:
-    """Phase 12: the device time of K1, K8, K5, K6, K9 and K4 from
+    """Phase 12: the device time of K1, K2, K8, K5, K6, K9 and K4 from
     torch.profiler, beside their CUDA-event times of phase 2 and 5 (the
     profiler's hooks slow every later launch of the process, so this runs
     after every timed block).  K8 at the narrowband shape, with
     torch.fft.fft's device time over all bins of the same block, must show
     one kernel per call; K1 at the bench shape must show its search launch
-    and the two spin passes, timed apart, with torch.fft.fft over all bins
-    of the same rows; K5/K6 over one K=24 cycle at B=2 and at the threshold
+    and the cluster spin-down, timed apart, with torch.fft.fft over all bins
+    of the same rows; K2 on the same rows must show the cluster spin-down
+    alone; K5/K6 over one K=24 cycle at B=2 and at the threshold
     block's batch (the record keeps the latter); K9 at the bench shape of
     phase 2; K4 at phase 2's case (a), 256 lanes at 12 cycles/bit."""
     import torch
@@ -1609,19 +1658,19 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         dev_ms[batch]
     # K1 at the bench shape of phase 2: the search launch and the spin
     # passes apart, beside torch.fft.fft over all bins of the same rows
-    k1_args, iq, _ = k1_inputs(dev)
+    k1_args, iq, carriers = k1_inputs(dev)
     k1_dev, per_call, by_name = kernels_device_ms(
         lambda: carrier_cuda.pm_locked_fused(*k1_args), 20)
     search = {k: v for k, v in by_name.items() if "locked_search_kernel" in k}
-    spin = {k: v for k, v in by_name.items()
-            if "moments_kernel" in k or "emit_kernel" in k}
-    # (the fourth kernel of a call is the wrapper's stack of the window
+    spin = {k: v for k, v in by_name.items() if "spin_cluster_kernel" in k}
+    # (the third kernel of a call is the wrapper's stack of the window
     # into one (B, 2) int32 tensor)
-    require(len(search) == 1 and len(spin) == 2 and per_call <= 4.0
-            and not any("dft_kernel" in k or "peak_kernel" in k
-                        for k in by_name),
+    require(len(search) == 1 and len(spin) == 1 and per_call <= 3.0
+            and not any(k2 in k for k in by_name
+                        for k2 in ("dft_kernel", "peak_kernel",
+                                   "moments_kernel", "emit_kernel")),
             f"K1: {per_call} kernels per call ({sorted(by_name)}), not the "
-            f"search launch and the two spin passes")
+            f"search launch and the cluster spin-down")
     fft1_dev = calls_device_ms(lambda: torch.fft.fft(iq, dim=-1), 20)[0]
     checks["pm_locked"].update(
         device_ms=k1_dev, search_device_ms=sum(search.values()),
@@ -1633,7 +1682,18 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         + f"; search {r['search_device_ms']:.4f} ms (bound "
         f"{r['search_bound_ms']:.4f}), torch.fft.fft over all bins "
         f"{fft1_dev:.4f} ms")
-    del k1_args, iq
+    # K2 at the same rows, 0.125 Hz off the carriers: one launch a call
+    f2 = carriers + 0.125
+    k2_dev, per_call, names = calls_device_ms(
+        lambda: carrier_cuda.spin_down_fused(k1_args[0], f2, SAMPRATE), 20)
+    require(len(names) == 1 and "spin_cluster_kernel" in names[0]
+            and per_call <= 1.0,
+            f"K2: {per_call} kernels per call ({names}), not the cluster "
+            f"spin-down alone")
+    checks["spin_down"]["device_ms"] = k2_dev
+    log(f"phase 12 K2 at {NCHAN} x {iq.shape[1]}: {k2_dev:.4f} ms device "
+        f"time in one kernel per call")
+    del k1_args, iq, f2
     _, args = k9_inputs(dev)
     k9_dev = kernel_device_ms(
         lambda: carrier_cuda.pm_scan_locked_fused(*args, tail=1),
@@ -1918,6 +1978,8 @@ def main() -> int:
             "clean regime: pm / csum stage did not run on CUDA")
     require(backends.get("pm_locked") == "columns",
             "clean regime: K1 did not search by its column design")
+    require(backends.get("spin") == "cluster",
+            "clean regime: the spin-down did not run on its cluster design")
     profile_block(iq, nframes, cfg, "clean")
     del iq
 
@@ -1952,6 +2014,8 @@ def main() -> int:
     require(backends_mid.get("fano") == "cuda", "mid regime: Fano not on CUDA")
     require(backends_mid.get("fano_walk") == "warp",
             "mid regime: K4 did not walk by its warp design")
+    require(backends_mid.get("spin") == "cluster",
+            "mid regime: the spin-down did not run on its cluster design")
     profile_block(iq, nframes, mid, "mid")
     del iq
 
@@ -1986,6 +2050,9 @@ def main() -> int:
     require(launches_thr["fano_walk"] > 0
             and backends_thr.get("fano_walk") == "warp",
             "threshold regime: K4 did not walk by its warp design")
+    require(backends_thr.get("spin") == "cluster",
+            "threshold regime: the spin-down did not run on its cluster "
+            "design")
     # up to 2 of the Viterbi lanes again: kernels vs plain versions
     viterbi_lanes_check(iq, nframes, thr, rec, "threshold regime")
     # K5/K6 timed at the batch the main path's fallback ran
@@ -2052,6 +2119,9 @@ def main() -> int:
                      "by lane ballots, the row as int16 pairs",
         "fano_walk": "one warp per lane: its metrics and tape in shared "
                      "memory, backtrack runs by ballots",
+        "spin_down": "cluster: one thread-block cluster per channel, one "
+                     "read and one sincosf a sample, the moments across the "
+                     "cluster by distributed shared memory",
     }
     kernels = [
         {
@@ -2069,7 +2139,7 @@ def main() -> int:
                 "spin_device_ms", "search_bound_ms", "search_library_ms",
                 "search_library_device_ms", "latency_bound_ms",
                 "max_lane_steps", "ns_per_step", "thread_ms",
-                "thread_ns_per_step")
+                "thread_ns_per_step", "two_pass_ms")
                if key in checks[name]},
         }
         for name in meta

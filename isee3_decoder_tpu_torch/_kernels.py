@@ -52,8 +52,9 @@ LAUNCHES: dict[str, int] = {
 #: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi", and
 #: "search" for K8, "pm_scan" for K9) → "cuda" or "torch", last run;
 #: "pm_locked" reads K1's search design ("columns" or "direct",
-#: carrier_cuda.pm_locked_plan); "fano_walk" reads K4's design ("warp"
-#: or "thread", fano_cuda.fano_walk_plan);
+#: carrier_cuda.pm_locked_plan); "spin" the spin-down design of K1 or K2
+#: ("cluster" or "two_pass", carrier_cuda.spin_plan); "fano_walk" reads
+#: K4's design ("warp" or "thread", fano_cuda.fano_walk_plan);
 #: "pm_scan" reads "fallback" when the fused scan's result was discarded
 #: for the block scan (carrier.pm_demod_scan_csum); "viterbi_path" reads
 #: "classic" (K10, ops/viterbi) or "fused" (K5/K6) for the Viterbi
@@ -72,12 +73,14 @@ _D = ctypes.c_double
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # packed, row_stride, iw, B, n, K, samprate, binsize, flip, dop,
-    # chirp, tab, smem, bb, stat, spec, cyc, mom, stream
+    # chirp, tab, smem, spin_cluster, spin_threads, bb, stat, spec, cyc,
+    # mom, stream
     "pm_locked_launch": (_P, _I, _P, _I, _I, _I, _F, _F, _I, _D, _P,
-                         _P, _I, _P, _P, _P, _P, _P, _P),
-    # packed, row_stride, cyc, B, n, samprate, flip, dop, bb, stat, mom,
-    # stream
-    "spin_down_launch": (_P, _I, _P, _I, _I, _F, _I, _D, _P, _P, _P, _P),
+                         _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # packed, row_stride, freq, divide, B, n, samprate, flip, dop,
+    # cluster, threads, bb, stat, mom, stream
+    "spin_down_launch": (_P, _I, _P, _I, _I, _I, _F, _I, _D, _I, _I, _P,
+                         _P, _P, _P),
     # blocks, T, B, n, tail, out, stream
     "prefix_sum_launch": (_P, _I, _I, _I, _I, _P, _P),
     # metrics4, regs, B, N, tail_start, kb, delta, max_total, poly1,

@@ -10,8 +10,8 @@
 //    entry spin_down_fused): the spin-down and emission at a given carrier.
 //
 // K1's search takes one of two designs, picked on shape by the wrapper's
-// plan (carrier_cuda.pm_locked_plan); both are followed by the same two
-// spin passes, which K2 runs alone.
+// plan (carrier_cuda.pm_locked_plan); both are followed by the same
+// spin-down, which K2 runs alone.
 //   "columns", n a multiple of 256 CD_COLS = 8192 (every locked block of
 //     the 250 ksps chain, de-chirped or not): locked_search_kernel, one
 //     512-thread block per channel, the window bins by K9's split (256-point
@@ -30,25 +30,46 @@
 //     l), block reduction over l; then peak_kernel, one thread per channel.
 //     The direct n·K sum (8 flop per sample and bin, each row read once
 //     per 16 bins): bound by operations, and small at these n.
-//   moments_kernel grid (chunks, B): partial sums of the five moments of
-//                  the spun samples, in double across threads.
-//   emit_kernel    grid (chunks, B): finishes the moments (every block the
-//                  same way, in the same order), recomputes the spun
-//                  samples and writes int16.  The spun samples are
-//                  recomputed rather than stored: 8 bytes/sample of HBM
-//                  round trip cost more than one more sincosf.
-// The spin passes read 4 bytes a sample twice and write 2, one precise
-// sincosf per sample each (no fast-math: __sinf/__cosf are wrong at these
-// angles); every phase stays exact (integer products reduced mod their
-// period, the two-level reduction c256*(i/256) + c*(i%256) of the JAX
-// package's _lo_ramp).  Measured at 128 x 65536, K = 107 on an H100
-// (utils/kernel_turns.py and chip_smoke.py phase 12, device time): the
-// search 0.028-0.032 ms, the moments 0.032-0.034, the emission
-// 0.037-0.039 of K1's 0.098-0.105 ms.
+// The spin-down (K2 alone, K1 after its search) takes one of two designs,
+// picked on shape by the wrapper's plan (carrier_cuda.spin_plan):
+//   "cluster", n up to SPIN_CLUSTER_MAX CHIRP_CHUNKs = 65,536 (every block
+//     of the receive chains): spin_cluster_kernel, one launch, one
+//     thread-block cluster per channel (8 blocks of 512 threads at n =
+//     65,536; one block for n <= 8192).  Each sample is read once (16-byte
+//     loads), spun once (one precise sincosf) and kept in registers while
+//     the five moments are reduced: float over a thread's 16 samples, double
+//     over the warp, the block and the cluster's ranks in rank order through
+//     distributed shared memory, so every block finishes them with the same
+//     bits; then it emits int16 from the registers (16-byte stores).  The
+//     carrier's cycles/sample are divided in the kernel (__fdiv_rn, as
+//     carrier.carrier_cycles rounds them).  4 + 2 bytes a sample, one
+//     sincosf: at 128 x 65536 it takes 0.040-0.045 ms of device time
+//     against a 0.015 ms bytes bound.  Not the loads hold it back: staging
+//     the next row by a bulk copy under the current row's sincosf
+//     (persistent clusters) gained nothing; one block an SM (80 registers)
+//     and one out-of-line sincosf for all samples lost.  So, by elimination,
+//     the instruction throughput of the per-sample chain (the precise
+//     sincosf's range reduction and polynomials, the exact phase, the
+//     rotation, the moments, the emission; 64 registers, two blocks an SM).
+//   "two_pass", longer rows: moments_kernel grid (chunks, B), partial sums
+//     of the five moments in double across threads, then emit_kernel grid
+//     (chunks, B), which finishes the moments (every block the same way, in
+//     the same order), spins the samples again and writes int16; the row
+//     is read twice, two sincosf a sample.
+// Every phase stays exact (integer products reduced mod their period, the
+// two-level reduction c256*(i/256) + c*(i%256) of the JAX package's
+// _lo_ramp; no fast-math: __sinf/__cosf are wrong at these angles).
+// Measured at 128 x 65536, K = 107 on an H100 80GB HBM3 at 700 W
+// (utils/kernel_turns.py, device time): K1's search 0.031 ms and its
+// spin-down 0.037-0.039 (the two passes took 0.072); K2 0.040-0.042 (0.075
+// in two passes).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define SPIN_CHUNK 4096   // samples per moments / emit block
 #define SPIN_THREADS 256  // SPIN_CHUNK / 16 samples per thread
@@ -397,30 +418,295 @@ __global__ void emit_kernel(const int32_t* __restrict__ packed, int row_stride,
   }
 }
 
+// ---- the spin-down in one launch: a thread-block cluster per channel ----
+// Grid (C, B), cluster (C, 1, 1): the C blocks of cluster b own row b, block
+// rank r the samples r*chunk .. r*chunk + chunk - 1 (chunk = blockDim.x *
+// SPIN_SPT, the plan's; a block of a cluster of C > 1 owns one whole
+// CHIRP_CHUNK, a lone block all n <= CHIRP_CHUNK samples, so every sample of
+// a block takes the same Chirp).  Thread t of a block holds the groups
+// g = p*blockDim.x + t, p < SPIN_SPT/SPIN_GROUP, of SPIN_GROUP consecutive
+// samples (sample r*chunk + SPIN_GROUP*g + e, e < SPIN_GROUP): it reads each
+// group's 8 words in two 16-byte loads (4-byte loads when a row is not
+// 16-byte aligned), keeps the spun samples in registers, and writes each
+// group's 8 int16 in one 16-byte store.  The moments: float over the
+// thread's samples in slot order (p, e), then double over the warp
+// (shuffles), over the warps in order and over the cluster's ranks in rank
+// order (distributed shared memory), so every block of a cluster finishes
+// them with the same bits and takes the same unit phasor.
+#define SPIN_SPT 16           // samples a thread holds
+#define SPIN_GROUP 8          // consecutive samples of one load pair / store
+#define SPIN_CLUSTER_MAX 8    // the portable cluster size
+#define SPIN_WARPS_MAX 16     // 512 threads
+#define SPIN_MIN_BLOCKS 2     // blocks an SM at 512 threads: <= 64 registers
+
+// the second cluster barrier in two halves: a block arrives once it has
+// read its siblings' partials, and waits before it exits, so no block's
+// shared memory goes while another reads it and the emission runs between
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// spun_sample for the SPIN_GROUP samples idx0 .. idx0 + 7 of a group
+// (idx0 % SPIN_GROUP == 0), with the same bits: the group shares idx >> 8
+// (so c256 * (idx >> 8)) and, de-chirped, j >> 8, and (float)(idx & 255)
+// = (float)(idx0 & 255) + e, (float)j = (float)j0 + e exactly
+__device__ __forceinline__ void spun_group(const int32_t w[SPIN_GROUP],
+                                           int idx0, float c, float c256,
+                                           bool dop, const Chirp& ch,
+                                           int flip, float sr[SPIN_GROUP],
+                                           float si[SPIN_GROUP]) {
+  const float hi = __fmul_rn(c256, (float)(idx0 >> 8));
+  const float lo0 = (float)(idx0 & 255);
+  float t0 = 0.0f, jl0 = 0.0f, jf0 = 0.0f;
+  if (dop) {
+    const int j0 = idx0 & (CHIRP_CHUNK - 1);
+    t0 = __fadd_rn(ch.A, __fmul_rn(ch.B256, (float)(j0 >> 8)));
+    jl0 = (float)(j0 & 255);
+    jf0 = (float)j0;
+  }
+#pragma unroll
+  for (int e = 0; e < SPIN_GROUP; ++e) {
+    float i_, q_;
+    unpack_iq(w[e], flip, i_, q_);
+    float cyc = __fadd_rn(hi, __fmul_rn(c, lo0 + (float)e));
+    if (dop) {
+      const float jf = jf0 + (float)e;
+      float t = __fadd_rn(t0, __fmul_rn(ch.Bk, jl0 + (float)e));
+      t = __fadd_rn(t, __fmul_rn(ch.C, __fmul_rn(jf, jf)));
+      cyc = __fadd_rn(cyc, t);
+    }
+    const float ang = __fmul_rn(6.283185307179586f, cyc);
+    float s, co;
+    sincosf(ang, &s, &co);
+    const float lor = co, loi = -s;
+    sr[e] = i_ * lor - q_ * loi;
+    si[e] = i_ * loi + q_ * lor;
+  }
+}
+
+// cin: (B,) Hz when divide (cycles = __fdiv_rn(Hz, samprate), as
+// carrier.carrier_cycles rounds it), else (B,) cycles/sample
+template <bool VEC>
+__global__ void __launch_bounds__(512, SPIN_MIN_BLOCKS)
+    spin_cluster_kernel(const int32_t* __restrict__ packed, int row_stride,
+                        const float* __restrict__ cin, int divide, int n,
+                        float samprate, int flip, double dop, int stat_stride,
+                        int16_t* __restrict__ bb, float* __restrict__ stat) {
+  constexpr int NG = SPIN_SPT / SPIN_GROUP;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nrank = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const int T = blockDim.x, t = threadIdx.x;
+  const int base = rank * T * SPIN_SPT;  // the block's first sample
+  const float x = cin[b];
+  const float c = divide ? __fdiv_rn(x, samprate) : x;
+  const float c256 = mod1(c * 256.0f);
+  const bool dp = dop != 0.0;
+  Chirp ch = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (dp) ch = chirp_coeffs(dop, base / CHIRP_CHUNK);
+  const int32_t* row = packed + (size_t)b * row_stride;
+
+  // ---- one read of the row: every load in flight before the first sincosf
+  int32_t w[NG][SPIN_GROUP];
+#pragma unroll
+  for (int p = 0; p < NG; ++p) {
+    const int i0 = base + SPIN_GROUP * (p * T + t);
+#pragma unroll
+    for (int e = 0; e < SPIN_GROUP; ++e) w[p][e] = 0;
+    if (i0 < n) {
+      if (VEC) {
+        const int4 u = *reinterpret_cast<const int4*>(row + i0);
+        const int4 v = *reinterpret_cast<const int4*>(row + i0 + 4);
+        w[p][0] = u.x; w[p][1] = u.y; w[p][2] = u.z; w[p][3] = u.w;
+        w[p][4] = v.x; w[p][5] = v.y; w[p][6] = v.z; w[p][7] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < SPIN_GROUP; ++e) w[p][e] = row[i0 + e];
+      }
+    }
+  }
+  // ---- one sincosf a sample; the spun samples stay in registers
+  float sr[NG][SPIN_GROUP], si[NG][SPIN_GROUP];
+  float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < NG; ++p) {
+    const int i0 = base + SPIN_GROUP * (p * T + t);
+#pragma unroll
+    for (int e = 0; e < SPIN_GROUP; ++e) {
+      sr[p][e] = 0.0f;
+      si[p][e] = 0.0f;
+    }
+    if (i0 < n) {
+      spun_group(w[p], i0, c, c256, dp, ch, flip, sr[p], si[p]);
+#pragma unroll
+      for (int e = 0; e < SPIN_GROUP; ++e) {
+        a[0] += sr[p][e];
+        a[1] += si[p][e];
+        a[2] += sr[p][e] * sr[p][e];
+        a[3] += si[p][e] * si[p][e];
+        a[4] += sr[p][e] * si[p][e];
+      }
+    }
+  }
+  // ---- the moments in double: warp, block, then the cluster in rank
+  //      order; warp 0 finishes them once for the block
+  __shared__ double wsum[SPIN_WARPS_MAX][5];
+  __shared__ double part[5];
+  __shared__ float unit[2];
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    double v = (double)a[m];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) wsum[warp][m] = v;
+  }
+  __syncthreads();
+  if (t < 5) {
+    double v = 0.0;
+    for (int k = 0; k < (T >> 5); ++k) v += wsum[k][t];
+    part[t] = v;
+  }
+  cluster.sync();  // every block's partials written (and every block running)
+  if (warp == 0) {
+    double v = 0.0;
+    if (lane < 5)
+      for (int r = 0; r < nrank; ++r)
+        v += *cluster.map_shared_rank(&part[lane], r);
+    double s[5];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) s[m] = __shfl_sync(0xffffffffu, v, m);
+    if (lane == 0) {
+      float amp, cn0;
+      finish_moments(s, n, samprate, amp, cn0, unit[0], unit[1]);
+      if (rank == 0) {
+        stat[(size_t)stat_stride * b + 0] = amp;
+        stat[(size_t)stat_stride * b + 1] = cn0;
+      }
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+  const float ur = unit[0], ui = unit[1];
+  // ---- emit from the registers, 8 int16 a store
+  int16_t* out = bb + (size_t)b * n;
+#pragma unroll
+  for (int p = 0; p < NG; ++p) {
+    const int i0 = base + SPIN_GROUP * (p * T + t);
+    if (i0 < n) {
+      int q[SPIN_GROUP];
+#pragma unroll
+      for (int e = 0; e < SPIN_GROUP; ++e)
+        q[e] = emit_sample(sr[p][e], si[p][e], ur, ui);
+      if (VEC) {
+        int4 o;
+        o.x = (int)(((unsigned)q[0] & 0xFFFFu) | ((unsigned)q[1] << 16));
+        o.y = (int)(((unsigned)q[2] & 0xFFFFu) | ((unsigned)q[3] << 16));
+        o.z = (int)(((unsigned)q[4] & 0xFFFFu) | ((unsigned)q[5] << 16));
+        o.w = (int)(((unsigned)q[6] & 0xFFFFu) | ((unsigned)q[7] << 16));
+        *reinterpret_cast<int4*>(out + i0) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < SPIN_GROUP; ++e) out[i0 + e] = (int16_t)q[e];
+      }
+    }
+  }
+  cluster_wait();
+}
+
+template <bool VEC>
+static cudaError_t spin_cluster_launch(const int32_t* packed, int row_stride,
+                                       const float* cin, int divide, int B,
+                                       int n, float samprate, int flip,
+                                       double dop, int cluster, int threads,
+                                       int16_t* bb, float* stat,
+                                       int stat_stride, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // once per device and cluster size: that such a cluster can be resident
+  static unsigned checked[32];  // bit `cluster` per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (cluster < 1 || cluster > SPIN_CLUSTER_MAX || threads < 32 ||
+      threads > 512 || (threads & 31) != 0)
+    return cudaErrorInvalidValue;
+  if (dev >= 32 || !(checked[dev] & (1u << cluster))) {
+    int fits = 0;
+    err = cudaOccupancyMaxActiveClusters(&fits, spin_cluster_kernel<VEC>,
+                                         &cfg);
+    if (err != cudaSuccess) return err;
+    if (fits < 1) return cudaErrorInvalidClusterSize;
+    if (dev < 32) checked[dev] |= 1u << cluster;
+  }
+  return cudaLaunchKernelEx(&cfg, spin_cluster_kernel<VEC>, packed, row_stride,
+                            cin, divide, n, samprate, flip, dop, stat_stride,
+                            bb, stat);
+}
+
+// The spin-down in the design of the wrapper's plan (carrier_cuda.spin_plan):
+//   cluster > 0 ("cluster"): spin_cluster_kernel, clusters of `cluster`
+//     blocks of `threads` threads; cin is Hz (divide 1) or cycles/sample;
+//   cluster 0 ("two_pass", rows of more than SPIN_CLUSTER_MAX CHIRP_CHUNKs):
+//     moments_kernel + emit_kernel with the scratch mom (B, ceil(n /
+//     SPIN_CHUNK), 5) f64; cin must be cycles/sample (divide 0).
 static cudaError_t spin_launch(const int32_t* packed, int row_stride,
-                               const float* cyc, int B, int n, float samprate,
-                               int flip, double dop, int16_t* bb, float* stat,
-                               int stat_stride, double* mom,
+                               const float* cin, int divide, int B, int n,
+                               float samprate, int flip, double dop,
+                               int cluster, int threads, int16_t* bb,
+                               float* stat, int stat_stride, double* mom,
                                cudaStream_t stream) {
+  if (cluster > 0) {
+    const bool vec = ((uintptr_t)packed & 15) == 0 && (row_stride & 3) == 0 &&
+                     ((uintptr_t)bb & 15) == 0;
+    return vec ? spin_cluster_launch<true>(packed, row_stride, cin, divide, B,
+                                           n, samprate, flip, dop, cluster,
+                                           threads, bb, stat, stat_stride,
+                                           stream)
+               : spin_cluster_launch<false>(packed, row_stride, cin, divide,
+                                            B, n, samprate, flip, dop, cluster,
+                                            threads, bb, stat, stat_stride,
+                                            stream);
+  }
+  if (divide || mom == nullptr) return cudaErrorInvalidValue;
   dim3 grid((n + SPIN_CHUNK - 1) / SPIN_CHUNK, B);
-  moments_kernel<<<grid, SPIN_THREADS, 0, stream>>>(packed, row_stride, cyc, n,
+  moments_kernel<<<grid, SPIN_THREADS, 0, stream>>>(packed, row_stride, cin, n,
                                                     flip, dop, mom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  emit_kernel<<<grid, SPIN_THREADS, 0, stream>>>(packed, row_stride, cyc, mom, n,
+  emit_kernel<<<grid, SPIN_THREADS, 0, stream>>>(packed, row_stride, cin, mom, n,
                                                  flip, dop, samprate,
                                                  stat_stride, bb, stat);
   return cudaGetLastError();
 }
 
-// K2.  cyc (B,) f32 carrier cycles/sample, dop as for K1; outputs bb
-// (B, n) int16 and stat (B, 2) f32 [amp, cn0]; scratch mom as for K1.
+// K2.  freq (B,) f32: Hz when divide, else cycles/sample (the "two_pass"
+// design takes cycles only); dop as for K1; cluster and threads from
+// carrier_cuda.spin_plan (cluster 0: "two_pass"); outputs bb (B, n) int16
+// and stat (B, 2) f32 [amp, cn0]; scratch mom as for spin_launch (NULL on
+// "cluster").
 extern "C" int spin_down_launch(const int32_t* packed, int row_stride,
-                                const float* cyc, int B, int n, float samprate,
-                                int flip, double dop, int16_t* bb, float* stat,
-                                double* mom, void* stream) {
-  return (int)spin_launch(packed, row_stride, cyc, B, n, samprate, flip, dop,
-                          bb, stat, 2, mom, (cudaStream_t)stream);
+                                const float* freq, int divide, int B, int n,
+                                float samprate, int flip, double dop,
+                                int cluster, int threads, int16_t* bb,
+                                float* stat, double* mom, void* stream) {
+  return (int)spin_launch(packed, row_stride, freq, divide, B, n, samprate,
+                          flip, dop, cluster, threads, bb, stat, 2, mom,
+                          (cudaStream_t)stream);
 }
 
 // ---- K8: the windowed DFT search and its peak pass in one launch --------
@@ -1429,23 +1715,27 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
 // K1.  packed (B rows of n words, row stride row_stride), iw (B, 2) int32
 // [first1, wlen]; dop: de-chirp rate in cycles/sample^2 (0: none) with
 // chirp its n phasors (NULL when dop == 0); outputs bb (B, n) int16,
-// stat (B, 4) f32 [amp, cn0, freq, peak]; scratch cyc (B,) f32, mom (B,
-// ceil(n/SPIN_CHUNK), 5) f64.  The search takes one of two designs, chosen
-// by the wrapper's plan (carrier_cuda.pm_locked_plan):
+// stat (B, 4) f32 [amp, cn0, freq, peak]; scratch cyc (B,) f32 and, on
+// the "two_pass" spin design only, mom (B, ceil(n/SPIN_CHUNK), 5) f64.
+// The search takes one of two designs, chosen by the wrapper's plan
+// (carrier_cuda.pm_locked_plan):
 //   tab non-NULL ("columns", n a multiple of 256 CD_COLS):
 //     locked_search_kernel with tab (n,) float2 from twiddle_table_launch
 //     and smem the plan's bytes;
 //   tab NULL ("direct"): dft_kernel + peak_kernel with the scratch spec
 //     (B, K) float2 and smem the plan's bytes ((n/256 + 128) float2: the
 //     rows' twiddles and the warps' partial bins).
-// Then the spin passes (moments_kernel, emit_kernel).
+// Then the spin-down at the cycles the search wrote, in the design of
+// carrier_cuda.spin_plan: spin_cluster_kernel (spin_cluster clusters of
+// spin_threads threads) or, spin_cluster 0, moments_kernel + emit_kernel.
 extern "C" int pm_locked_launch(const int32_t* packed, int row_stride,
                                 const int32_t* iw, int B, int n, int K,
                                 float samprate, float binsize, int flip,
                                 double dop, const float* chirp,
-                                const float* tab, int smem, int16_t* bb,
-                                float* stat, float* spec, float* cyc,
-                                double* mom, void* stream) {
+                                const float* tab, int smem, int spin_cluster,
+                                int spin_threads, int16_t* bb, float* stat,
+                                float* spec, float* cyc, double* mom,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (tab != nullptr) {
@@ -1480,6 +1770,7 @@ extern "C" int pm_locked_launch(const int32_t* packed, int row_stride,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)spin_launch(packed, row_stride, cyc, B, n, samprate, flip, dop,
-                          bb, stat, 4, mom, s);
+  return (int)spin_launch(packed, row_stride, cyc, 0, B, n, samprate, flip,
+                          dop, spin_cluster, spin_threads, bb, stat, 4, mom,
+                          s);
 }

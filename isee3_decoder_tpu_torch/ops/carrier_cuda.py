@@ -12,7 +12,9 @@ The CUDA source is csrc/carrier.cu.  A CUDA tensor goes through the
 kernel (or the wrapper raises); a CPU tensor through the plain version
 beside it, which is the JAX package's XLA path written in PyTorch
 (windowed DFT by einsum, masked last-max peak, Quinn, five-moment
-spin-down, int16 emission).
+spin-down, int16 emission).  The launch plans (``pm_locked_plan``,
+``spin_plan``, ``windowed_search_plan``, ``pm_scan_plan``) pick each
+kernel's design on shape.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops import carrier
 from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks_plain
 
-SPIN_CHUNK = 4096  # samples per moments/emit block (csrc/carrier.cu)
+SPIN_CHUNK = 4096  # samples per "two_pass" moments/emit block (csrc/carrier.cu)
+SPIN_THREADS = 256  # threads of a "two_pass" block
 CHIRP_CHUNK = 8192  # de-chirp coefficient chunk (csrc/carrier.cu)
+SPIN_SPT = 16  # samples a thread of the "cluster" design holds
+SPIN_GROUP = 8  # consecutive samples it loads and stores at once
+SPIN_CLUSTER_MAX = 8  # the portable thread-block cluster size
 SCAN_CHUNK = 8192  # the TPU kernels' chunk: K9's gate, K1's over K8 + K2
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 
@@ -136,9 +142,67 @@ def _check_packed(packed: torch.Tensor, out: torch.Tensor | None) -> None:
                          "on the input's device")
 
 
-def _moment_scratch(B: int, n: int, device) -> torch.Tensor:
-    nchunk = -(-n // SPIN_CHUNK)
+@functools.lru_cache(maxsize=64)
+def spin_plan(n: int, B: int, design: str | None = None) -> dict:
+    """The spin-down's launch plan (csrc/carrier.cu ``spin_launch``, run by
+    K2 and by K1 after its search) for B rows of n samples, chosen on
+    shape:
+
+    - ``"cluster"`` for n up to SPIN_CLUSTER_MAX · CHIRP_CHUNK = 65,536:
+      ``spin_cluster_kernel``, one thread-block cluster of ``cluster`` =
+      ⌈n / 8192⌉ blocks per row (grid (cluster, B)).  A block of a cluster
+      of more than one owns one whole CHIRP_CHUNK, 512 threads × SPIN_SPT
+      samples; a lone block (n ≤ 8192) ⌈n / 16⌉ threads rounded up to a
+      warp.  Rank r, thread t, slot (p, e) holds sample r·chunk +
+      SPIN_GROUP·(p·threads + t) + e (slots past n hold nothing), so a
+      block's samples share one de-chirp chunk, r·chunk // CHIRP_CHUNK.
+      Each sample is read once, spun once and kept in registers until the
+      cluster's moments are summed; no scratch.
+    - ``"two_pass"`` for longer rows: ``moments_kernel`` + ``emit_kernel``,
+      grid (⌈n / SPIN_CHUNK⌉, B) of SPIN_THREADS threads, thread t, step j
+      of chunk k holding sample k·SPIN_CHUNK + j·SPIN_THREADS + t; each
+      pass reads the row and spins it, the moments go through an f64
+      scratch of (B, ⌈n / SPIN_CHUNK⌉, 5).
+
+    ``design`` pins one, for checks that hold both against the plain
+    version; "cluster" raises where a cluster cannot hold the row.  Raises
+    ValueError on what no design takes: n not a positive multiple of 256,
+    n ≥ 2^30 (int32 sample indices), B outside 1..65535 (the grid's y)."""
+    if n <= 0 or n % 256 != 0 or n >= 1 << 30:
+        raise ValueError(f"n = {n} must be a positive multiple of 256 below "
+                         "2^30")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"B = {B} out of range 1..65535")
+    cluster = -(-n // CHIRP_CHUNK)
+    if design is None:
+        design = "cluster" if cluster <= SPIN_CLUSTER_MAX else "two_pass"
+    if design == "two_pass":
+        nchunk = -(-n // SPIN_CHUNK)
+        return {"design": "two_pass", "cluster": 0, "threads": SPIN_THREADS,
+                "samples_per_thread": SPIN_CHUNK // SPIN_THREADS,
+                "chunk": SPIN_CHUNK, "grid": (nchunk, B)}
+    if design != "cluster":
+        raise ValueError(f"unknown spin-down design {design!r}")
+    if cluster > SPIN_CLUSTER_MAX:
+        raise ValueError(f"n = {n}: a cluster of {SPIN_CLUSTER_MAX} blocks "
+                         f"holds at most {SPIN_CLUSTER_MAX * CHIRP_CHUNK} "
+                         "samples")
+    threads = 512 if cluster > 1 else -(-n // (32 * SPIN_SPT)) * 32
+    return {"design": "cluster", "cluster": cluster, "threads": threads,
+            "samples_per_thread": SPIN_SPT, "group": SPIN_GROUP,
+            "chunk": threads * SPIN_SPT, "grid": (cluster, B)}
+
+
+def _spin_scratch(plan: dict, device) -> torch.Tensor | None:
+    """The "two_pass" design's f64 moment scratch (B, chunks, 5)."""
+    if plan["design"] != "two_pass":
+        return None
+    nchunk, B = plan["grid"]
     return torch.empty((B, nchunk, 5), dtype=torch.float64, device=device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _put(bb: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -158,13 +222,18 @@ def pm_locked_fused(
     flip: bool = False,
     dop: float = 0.0,
     out: torch.Tensor | None = None,
+    spin_design: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: one locked pm block, window search to int16 emission →
     (baseband int16 (B, n), carrier_freq, amp, cn0_db), all float32.
 
     ``K`` bins first1 .. first1+K-1 are evaluated (carrier._window_bins);
     callers pass the carrier._fast_search_ok gate, so 1 <= wlen <= K-2.
-    ``dop`` (cycles/sample²) de-chirps; ``out`` receives the baseband."""
+    ``dop`` (cycles/sample²) de-chirps; ``out`` receives the baseband.
+    The search runs in the design ``pm_locked_plan`` picks, the spin-down
+    in the one ``spin_plan`` picks (``_kernels.backend_used["pm_locked"]``
+    and ``["spin"]``); ``spin_design`` pins the latter, for checks against
+    the plain version only."""
     if not _kernels.use_kernel(packed):
         _kernels.note_backend("pm", "torch")
         bb, freq, amp, cn0 = pm_locked_plain(packed, first1, wlen, K,
@@ -173,6 +242,7 @@ def pm_locked_fused(
     _check_packed(packed, out)
     B, n = packed.shape
     plan = pm_locked_plan(n, K)
+    spin = spin_plan(n, B, spin_design)
     dev = packed.device
     iw = torch.stack([first1, wlen], dim=1).to(device=dev,
                                                 dtype=torch.int32).contiguous()
@@ -182,24 +252,24 @@ def pm_locked_fused(
                                                  device=dev)
     stat = torch.empty((B, 4), dtype=torch.float32, device=dev)
     cyc = torch.empty((B,), dtype=torch.float32, device=dev)
-    mom = _moment_scratch(B, n, dev)
+    mom = _spin_scratch(spin, dev)
     chirp = chirp_table(n, dop, dev) if dop else None
     columns = plan["design"] == "columns"
     spec = None if columns else torch.empty((B, K, 2), dtype=torch.float32,
                                             device=dev)
     err = _kernels.lib().pm_locked_launch(
         packed.data_ptr(), packed.stride(0), iw.data_ptr(), B, n, K,
-        float(np.float32(samprate)), float(np.float32(binsize)), int(flip),
-        float(dop), None if chirp is None else chirp.data_ptr(),
+        kernel_samprate(samprate), float(np.float32(binsize)), int(flip),
+        float(dop), _ptr(chirp),
         twiddle_table(n, dev).data_ptr() if columns else None, plan["smem"],
-        bb.data_ptr(), stat.data_ptr(),
-        None if spec is None else spec.data_ptr(), cyc.data_ptr(),
-        mom.data_ptr(), _kernels.stream_ptr(dev),
+        spin["cluster"], spin["threads"], bb.data_ptr(), stat.data_ptr(),
+        _ptr(spec), cyc.data_ptr(), _ptr(mom), _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "pm_locked_launch")
     _kernels.count_launch("pm_locked")
     _kernels.note_backend("pm", "cuda")
     _kernels.note_backend("pm_locked", plan["design"])
+    _kernels.note_backend("spin", spin["design"])
     return bb, stat[:, 2], stat[:, 0], stat[:, 1]
 
 
@@ -210,10 +280,16 @@ def spin_down_fused(
     flip: bool = False,
     dop: float = 0.0,
     out: torch.Tensor | None = None,
+    design: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: spin-down at the given carrier + int16 emission →
     (baseband int16 (B, n), amp, cn0_db).  ``dop`` (cycles/sample²)
-    de-chirps; ``out`` receives the baseband when given."""
+    de-chirps; ``out`` receives the baseband when given.  Runs in the
+    design ``spin_plan`` picks (``_kernels.backend_used["spin"]``);
+    ``design`` pins one, for checks against the plain version only.  On
+    "cluster" the kernel divides the carrier by the sample rate itself
+    (``__fdiv_rn``, carrier.carrier_cycles' rounding), so a float32
+    carrier on the card costs no other launch."""
     if not _kernels.use_kernel(packed):
         _kernels.note_backend("pm", "torch")
         bb, amp, cn0 = spin_down_plain(packed, carrier_freq, samprate, flip,
@@ -221,23 +297,36 @@ def spin_down_fused(
         return _put(bb, out), amp, cn0
     _check_packed(packed, out)
     B, n = packed.shape
+    plan = spin_plan(n, B, design)
     dev = packed.device
     if carrier_freq.shape != (B,):
         raise ValueError("carrier_freq must be (B,)")
-    cyc = carrier.carrier_cycles(carrier_freq.to(dev), samprate).contiguous()
+    freq = carrier_freq.to(device=dev, dtype=torch.float32).contiguous()
+    cluster = plan["design"] == "cluster"
+    # the two passes take cycles/sample, the cluster kernel divides itself
+    cin = freq if cluster else carrier.carrier_cycles(freq, samprate)
     bb = out if out is not None else torch.empty((B, n), dtype=torch.int16,
                                                  device=dev)
     stat = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    mom = _moment_scratch(B, n, dev)
+    mom = _spin_scratch(plan, dev)
     err = _kernels.lib().spin_down_launch(
-        packed.data_ptr(), packed.stride(0), cyc.data_ptr(), B, n,
-        float(np.float32(samprate)), int(flip), float(dop), bb.data_ptr(),
-        stat.data_ptr(), mom.data_ptr(), _kernels.stream_ptr(dev),
+        packed.data_ptr(), packed.stride(0), cin.data_ptr(), int(cluster), B,
+        n, kernel_samprate(samprate), int(flip), float(dop), plan["cluster"],
+        plan["threads"], bb.data_ptr(), stat.data_ptr(), _ptr(mom),
+        _kernels.stream_ptr(dev),
     )
     _kernels.check(err, "spin_down_launch")
     _kernels.count_launch("spin_down")
     _kernels.note_backend("pm", "cuda")
+    _kernels.note_backend("spin", plan["design"])
     return bb, stat[:, 0], stat[:, 1]
+
+
+def kernel_samprate(samprate: float) -> float:
+    """The sample rate as the kernels take it: rounded to float32, so the
+    "cluster" spin-down's ``__fdiv_rn(Hz, samprate)`` is carrier.
+    carrier_cycles' float32 division."""
+    return float(np.float32(samprate))
 
 
 def windowed_dft_raw_plain(packed: torch.Tensor, first1: torch.Tensor, K: int,

@@ -1,8 +1,8 @@
-"""Time kernels K1, K4, K8, K5, K6 and K9 of one checkout of the port, for
-comparing two trees in turns on one card.
+"""Time kernels K1, K2, K4, K8, K5, K6 and K9 of one checkout of the port,
+for comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
-        [--kernels k8,k5,k6,k9,k1,k4]
+        [--kernels k8,k5,k6,k9,k1,k2,k4]
 
 imports ``isee3_decoder_tpu_torch`` from the checkout at DIR (this file
 imports nothing of the package before that, so it can time an older
@@ -22,8 +22,15 @@ tree), builds its kernels, and prints one JSON line:
   (noise 2500): event ms and device ms per launch;
 - K1 (``carrier_cuda.pm_locked_fused``, one locked pm block) at the bench
   shape, 128 x 65,536, K = 107, on a clean block: event ms and device ms
-  per call, and the device ms of each kernel it launches (the search and
-  the spin passes apart);
+  per call, and the device ms of each kernel it launches, and of its
+  search launch and its spin-down apart (``search_device_ms``,
+  ``spin_device_ms``);
+- K2 (``carrier_cuda.spin_down_fused``, the spin-down at a given carrier)
+  at the bench shape, 128 x 65,536, on a clean block of carriers 20 kHz +
+  137 Hz·i spun down 0.125 Hz off them, without and with flip and a
+  40 Hz/s Doppler rate (``k2``, ``k2fd``), and at the narrowband path's
+  shape, 128 x 4096 (``k2nb``): event ms and device ms per call, and the
+  spin design the wrapper reports;
 - K4 (``fano_cuda.fano_walk``, the Fano walk alone, MCQLI-24 frames of
   1024 bits from ``np.random.default_rng(4)`` as chip_smoke.py phase 2
   builds them) in three cases: (a) 256 lanes at sigma 75 and the tier-1
@@ -40,7 +47,8 @@ K5: bit for bit; K6: metrics, decision words and row minima bit for
 bit; K9: ok lanes and locks equal, frequency and centre
 within 5e-3 Hz, C/N0 within 1e-2 dB, baseband within 1 LSB; K1:
 frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within 1e-2
-dB, baseband within 1 LSB; K4: bits and [np, gamma, cycles, t] bit for
+dB, baseband within 1 LSB; K2: amplitude within rtol 1e-5, C/N0
+within 1e-2 dB, baseband within 1 LSB; K4: bits and [np, gamma, cycles, t] bit for
 bit, against ``fano_walk_plain`` run on the CPU once per set of inputs
 and kept in build/kernel_turns/ for the later turns of a call).  Every
 CUDA-event time is taken before the first torch.profiler session, which
@@ -111,7 +119,10 @@ def _device_ms(torch, fn, reps: int, warmup: int = 5) -> tuple[float, float, dic
     return sum(by_name.values()), count / reps, by_name
 
 
-KERNELS = ("k8", "k5", "k6", "k9", "k1", "k4")
+KERNELS = ("k8", "k5", "k6", "k9", "k1", "k2", "k4")
+# kernel names of the spin-down in any tree: the two passes (older trees,
+# and the "two_pass" design) and the cluster kernel
+SPIN_KERNELS = ("moments_kernel", "emit_kernel", "spin_cluster_kernel")
 
 
 def k4_walk_inputs(torch, np, dev, lanes: int = 256):
@@ -294,8 +305,8 @@ def main() -> int:
         timed.append(("k6", k6, 20, out["k6"]))
         oks.append(ok6)
 
-    # ---- K9 and K1 at the bench shape
-    if want & {"k9", "k1"}:
+    # ---- K9, K1 and K2 at the bench shape
+    if want & {"k9", "k1", "k2"}:
         B, T = 128, 32
         cfg = carrier.PMConfig(samprate=250_000.0, binsize=4.0,
                                search_width=200.0)
@@ -373,6 +384,47 @@ def main() -> int:
         timed.append(("k1", k1, 20, out["k1"]))
         oks.append(ok1)
 
+    # ---- K2 at the bench shape (without, then with flip and a Doppler
+    #      rate) and at the narrowband path's
+    if "k2" in want:
+        narrow = carrier.PMConfig(samprate=32768.0, binsize=8.0,
+                                  search_width=200.0)
+        for name, c2, flip, doppler in (("k2", cfg, False, 0.0),
+                                        ("k2fd", cfg, True, 40.0),
+                                        ("k2nb", narrow, False, 0.0)):
+            n2 = c2.fftsize
+            f2 = torch.as_tensor(
+                (20_000.0 + 137.0 * np.arange(B)) if n2 == n
+                else (4000.0 + 37.0 * np.arange(B)),
+                dtype=torch.float32, device=dev)
+            gen.manual_seed(2)
+            fr = torch.as_tensor(random_frames(np.random.default_rng(2), B),
+                                 device=dev)[:, None, :]
+            iq = synthesize_iq_device(fr, f2, gen, n2, samprate=c2.samprate,
+                                      symrate=1024.0, noise_std=2500.0)
+            pk2 = carrier.pack_raw(to_raw_int16(iq))
+            del iq
+            spin = (pk2, (-1.0 if flip else 1.0) * f2 + 0.125, c2.samprate,
+                    flip, doppler / c2.samprate**2)
+            bb_p, a_p, c_p = carrier_cuda.spin_down_plain(*spin)
+            bb_k, a_k, c_k = carrier_cuda.spin_down_fused(*spin)
+            err2 = int((bb_k.int() - bb_p.int()).abs().max())
+            ok2 = (bool(torch.allclose(a_k, a_p, rtol=1e-5, atol=0))
+                   and float((c_k - c_p).abs().max()) <= 1e-2 and err2 <= 1)
+            out[name] = {"shape": f"{B} x {n2}", "flip": flip,
+                         "doppler_hz_per_s": doppler, "ok": ok2,
+                         "max_dbaseband_lsb": err2,
+                         "max_dcn0_db": float((c_k - c_p).abs().max()),
+                         "design": _kernels.backend_used.get("spin",
+                                                             "two_pass")}
+            del bb_k, bb_p
+
+            def k2(spin=spin):
+                carrier_cuda.spin_down_fused(*spin)
+
+            timed.append((name, k2, 50, out[name]))
+            oks.append(ok2)
+
     # ---- K4: the Fano walk alone in cases (a), (b), (c)
     if "k4" in want:
         dcfg, a, b = k4_walk_inputs(torch, np, dev)
@@ -421,6 +473,11 @@ def main() -> int:
         else:
             rec.update(device_ms=dms, kernels_per_call=per_call,
                        kernels=by_name)
+        if name == "k1":
+            spin = sum(v for k, v in by_name.items()
+                       if any(s in k for s in SPIN_KERNELS))
+            rec.update(spin_device_ms=spin, search_device_ms=sum(
+                v for k, v in by_name.items() if "locked_search_kernel" in k))
     print(json.dumps(out), flush=True)
     return 0 if all(oks) else 1
 

@@ -66,6 +66,7 @@ def _raw(dev, B: int, cfg: carrier.PMConfig, seed: int, nblocks: int = 1):
     return to_raw_int16(iq), freqs
 
 
+@pytest.mark.parametrize("spin", ["cluster", "two_pass"])
 @pytest.mark.parametrize("samprate,binsize,B,flip,doppler,design", [
     (32768.0, 4.0, 5, False, 0.0, "columns"),     # n = 8192
     (32768.0, 4.0, 8, True, 0.0, "columns"),
@@ -74,7 +75,12 @@ def _raw(dev, B: int, cfg: carrier.PMConfig, seed: int, nblocks: int = 1):
     (32768.0, 8.0, 7, False, 50.0, "direct"),      # n = 4096
     (32768.0, 8.0, 6, True, -40.0, "direct"),
 ])
-def test_k1_k2_match_plain(dev, samprate, binsize, B, flip, doppler, design):
+def test_k1_k2_match_plain(dev, samprate, binsize, B, flip, doppler, design,
+                           spin):
+    """K1 and K2 on both spin-down designs ("cluster", one cluster of
+    blocks per row, and "two_pass"), pinned as fano_walk(design=...) is,
+    against their plain versions; B = 133 at n = 65,536 gives more
+    clusters than the card holds at once."""
     cfg = carrier.PMConfig(samprate=samprate, binsize=binsize,
                            search_width=100.0)
     dop = doppler / cfg.samprate**2
@@ -88,10 +94,11 @@ def test_k1_k2_match_plain(dev, samprate, binsize, B, flip, doppler, design):
     args = (packed, first - 1, last - first, K, cfg.samprate,
             cfg.actual_binsize, flip, dop)
     n0 = _kernels.LAUNCHES["pm_locked"]
-    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args)
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(*args, spin_design=spin)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["pm_locked"] == n0 + 1
     assert _kernels.backend_used["pm_locked"] == design
+    assert _kernels.backend_used["spin"] == spin
     assert carrier_cuda.pm_locked_plan(cfg.fftsize, K)["design"] == design
     bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(*args)
     torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
@@ -100,8 +107,12 @@ def test_k1_k2_match_plain(dev, samprate, binsize, B, flip, doppler, design):
     assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
 
     f = (-1.0 if flip else 1.0) * (freqs + 0.125)
+    n0 = _kernels.LAUNCHES["spin_down"]
     bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, cfg.samprate,
-                                                  flip, dop)
+                                                  flip, dop, design=spin)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["spin_down"] == n0 + 1
+    assert _kernels.backend_used["spin"] == spin
     bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, cfg.samprate,
                                                   flip, dop)
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
@@ -140,10 +151,11 @@ def test_k1_windows_that_wrap_match_plain(dev, dop):
     assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
 
 
-@pytest.mark.parametrize("n", [4096, 8192, 12288, 65536])
+@pytest.mark.parametrize("n", [4096, 8192, 12288, 65536, 131072])
 def test_k1_wrapper_reports_the_plans_design(dev, n):
-    """The design pm_locked_fused records (backend_used["pm_locked"]) is
-    the one pm_locked_plan picks for the shape."""
+    """The designs pm_locked_fused records (backend_used["pm_locked"] and
+    ["spin"]) are the ones pm_locked_plan and spin_plan pick for the
+    shape."""
     B, K = 3, 53
     raw = torch.randint(-3000, 3000, (B, 2 * n), device=dev,
                         dtype=torch.int32).to(torch.int16)
@@ -155,6 +167,98 @@ def test_k1_wrapper_reports_the_plans_design(dev, n):
     want = "columns" if n % 8192 == 0 else "direct"
     assert carrier_cuda.pm_locked_plan(n, K)["design"] == want
     assert _kernels.backend_used["pm_locked"] == want
+    spin = "cluster" if n <= 65536 else "two_pass"
+    assert carrier_cuda.spin_plan(n, B)["design"] == spin
+    assert _kernels.backend_used["spin"] == spin
+
+
+@pytest.mark.parametrize("n", [256, 4096, 8192, 12288, 65536, 65792, 131072])
+def test_k2_wrapper_reports_the_plans_design(dev, n):
+    """The spin-down design spin_down_fused records (backend_used["spin"])
+    is the one spin_plan picks for the shape, and the result is the plain
+    version's."""
+    B = 3
+    raw = torch.randint(-3000, 3000, (B, 2 * n), device=dev,
+                        dtype=torch.int32).to(torch.int16)
+    packed = carrier.pack_raw(raw)
+    f = torch.tensor([100.0, -2500.5, 7000.25], device=dev)
+    bb_k, a_k, c_k = carrier_cuda.spin_down_fused(packed, f, 32768.0)
+    torch.cuda.synchronize()
+    want = "cluster" if n <= 65536 else "two_pass"
+    assert carrier_cuda.spin_plan(n, B)["design"] == want
+    assert _kernels.backend_used["spin"] == want
+    bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, 32768.0)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
+    assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("samprate,binsize", [(250000.0, 4.0),
+                                              (32768.0, 8.0)])
+def test_k1_k2_unaligned_rows_match_plain(dev, samprate, binsize):
+    """Rows of a strided view that are not 16-byte aligned (row stride n +
+    1 words, first row at word 1): the spin-down takes 4-byte loads and
+    2-byte stores there, and gives the plain version's result."""
+    cfg = carrier.PMConfig(samprate=samprate, binsize=binsize,
+                           search_width=100.0)
+    B, n = 6, cfg.fftsize
+    raw, freqs = _raw(dev, B, cfg, seed=31)
+    packed = carrier.pack_raw(raw)
+    buf = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
+    buf[:, 1:] = packed
+    view = buf[:, 1:]
+    assert view.data_ptr() % 16 != 0 and view.stride(0) % 4 != 0
+    f = freqs + 0.125
+    bb_k, a_k, c_k = carrier_cuda.spin_down_fused(view, f, cfg.samprate)
+    torch.cuda.synchronize()
+    assert _kernels.backend_used["spin"] == "cluster"
+    bb_p, a_p, c_p = carrier_cuda.spin_down_plain(packed, f, cfg.samprate)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
+    assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
+    carry = carrier.PMCarry(search_center=freqs,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    K = carrier._window_bins(cfg)
+    rest = (first - 1, last - first, K, cfg.samprate, cfg.actual_binsize)
+    bb_k, f_k, a_k, c_k = carrier_cuda.pm_locked_fused(view, *rest)
+    torch.cuda.synchronize()
+    bb_p, f_p, a_p, c_p = carrier_cuda.pm_locked_plain(packed, *rest)
+    torch.testing.assert_close(f_k, f_p, atol=5e-3, rtol=0)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-2, rtol=0)
+    assert int((bb_k.int() - bb_p.int()).abs().max()) <= 1
+
+
+def test_k1_k2_cluster_design_is_deterministic(dev):
+    """Two calls give the same bits: the moments are summed in a fixed
+    order (threads, warps, then the cluster's ranks in rank order), no
+    atomics."""
+    cfg = carrier.PMConfig(samprate=250000.0, binsize=4.0, search_width=100.0)
+    raw, freqs = _raw(dev, 16, cfg, seed=41)
+    packed = carrier.pack_raw(raw)
+    dop = -30.0 / cfg.samprate**2
+    runs = [carrier_cuda.spin_down_fused(packed, freqs + 0.125, cfg.samprate,
+                                         True, dop) for _ in range(2)]
+    assert _kernels.backend_used["spin"] == "cluster"
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    carry = carrier.PMCarry(search_center=freqs,
+                            cn0=torch.full_like(freqs, 60.0))
+    first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
+    args = (packed, first - 1, last - first, carrier._window_bins(cfg),
+            cfg.samprate, cfg.actual_binsize)
+    runs = [carrier_cuda.pm_locked_fused(*args) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_k2_refuses_a_pinned_design_it_cannot_run(dev):
+    raw = torch.zeros((2, 2 * 131072), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="at most 65536"):
+        carrier_cuda.spin_down_fused(carrier.pack_raw(raw),
+                                     torch.zeros(2, device=dev), 32768.0,
+                                     design="cluster")
 
 
 @pytest.mark.parametrize("T,B,n,tail", [(3, 5, 1000, 2), (2, 130, 4096, 0)])

@@ -1,6 +1,7 @@
 """Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``),
 K6 (csrc/viterbi.cu ``viterbi_b_kernel``), K8 (csrc/carrier.cu
-``windowed_search_kernel``) and K9 (csrc/carrier.cu ``pm_scan_kernel``),
+``windowed_search_kernel``), K9 (csrc/carrier.cu ``pm_scan_kernel``) and
+the spin-down of K1 and K2 (csrc/carrier.cu ``spin_cluster_kernel``),
 checked on the CPU: the tiles cover every state, sample, column and bin
 exactly once, every decision word has one writer, shared memory stays
 within one block's limit, and K6's swizzled row puts a warp's accesses
@@ -8,8 +9,10 @@ in 32 banks.  The kernels' index arithmetic is mirrored here (the radix
 stages of K5 with their split branch parities; K6's register stages,
 lane steps by exchange and (mt, mm) table; the 16 x C split of K8 with
 its integer phase walks; K9's 256-point column DFTs by two 16-point
-stages and its outer sum) and held against the plain versions, since
-the kernels themselves run only on the card.
+stages and its outer sum; the spin-down's group phase and summation
+order) and held against the plain versions (the spin-down also against
+the JAX package's kernel in interpret mode), since the kernels
+themselves run only on the card.
 """
 
 import itertools
@@ -1043,3 +1046,289 @@ def test_k4_ballot_search_on_sparse_tapes(seed):
             assert got[:2] == _k4_max_rule(T, np_, t, tail_start, kb)
             deep += got[2] > 1
     assert deep > 0
+
+
+# ---------------------------------------------------------------- spin-down plan
+
+SPIN_NS = (256, 768, 4096, 8192, 12288, 18944, 40960, 65536, 65792, 131072)
+
+
+def _spin_index(plan, n):
+    """The sample each (rank or chunk, slot, thread, position) of the
+    plan's design holds, -1 past n: "cluster" rank r, slot p, thread t,
+    position e → r·chunk + GROUP·(p·threads + t) + e; "two_pass" chunk k,
+    step j, thread t → k·SPIN_CHUNK + j·threads + t."""
+    T = plan["threads"]
+    if plan["design"] == "cluster":
+        G = plan["group"]
+        r, p, t, e = np.ix_(np.arange(plan["cluster"]),
+                            np.arange(plan["samples_per_thread"] // G),
+                            np.arange(T), np.arange(G))
+        idx = r * plan["chunk"] + G * (p * T + t) + e
+    else:
+        k, j, t = np.ix_(np.arange(plan["grid"][0]),
+                         np.arange(plan["samples_per_thread"]), np.arange(T))
+        idx = k * plan["chunk"] + j * T + t
+    return np.where(idx < n, idx, -1)
+
+
+@pytest.mark.parametrize("design", [None, "two_pass"])
+@pytest.mark.parametrize("n", SPIN_NS)
+def test_spin_plan_covers_every_sample_once(n, design):
+    """Every sample of a row is held by exactly one (rank, thread, slot) —
+    (chunk, thread, step) on "two_pass" — on the design the plan picks
+    ("cluster" up to 8 blocks of 8192 samples, "two_pass" beyond) and on
+    "two_pass" pinned."""
+    plan = carrier_cuda.spin_plan(n, 128, design)
+    idx = _spin_index(plan, n)
+    assert np.array_equal(np.sort(idx[idx >= 0]), np.arange(n))
+    want = design or ("cluster" if n <= 8 * 8192 else "two_pass")
+    assert plan["design"] == want
+    if want == "cluster":
+        assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 512
+        assert 1 <= plan["cluster"] <= 8
+        assert (plan["cluster"] - 1) * plan["chunk"] < n
+        # a lone block: n rounded up to a warp's 512 samples; else a
+        # block per de-chirp chunk
+        assert (plan["chunk"] < n + 512 if plan["cluster"] == 1
+                else plan["chunk"] == carrier_cuda.CHIRP_CHUNK)
+        assert plan["grid"] == (plan["cluster"], 128)
+    else:
+        assert plan["grid"] == (-(-n // carrier_cuda.SPIN_CHUNK), 128)
+
+
+@pytest.mark.parametrize("n", [n for n in SPIN_NS if n <= 8 * 8192])
+def test_spin_plan_blocks_keep_to_one_chirp_chunk(n):
+    """A "cluster" block takes one de-chirp chunk, r·chunk // 8192, for
+    all its samples (the kernel computes one Chirp a block), and a group
+    of 8 starts at a multiple of 8, so its samples share idx >> 8 and j >> 8
+    (spun_group's hoisting)."""
+    plan = carrier_cuda.spin_plan(n, 8)
+    idx = _spin_index(plan, n)
+    for r in range(plan["cluster"]):
+        held = idx[r][idx[r] >= 0]
+        assert np.unique(held // carrier_cuda.CHIRP_CHUNK).tolist() == [
+            r * plan["chunk"] // carrier_cuda.CHIRP_CHUNK]
+    first = idx[..., 0]
+    first = first[first >= 0]
+    assert (first % 8 == 0).all()
+    assert np.array_equal(idx[idx >= 0] >> 8,
+                          np.broadcast_to(idx[..., :1], idx.shape)[idx >= 0] >> 8)
+
+
+@pytest.mark.parametrize("n,B,design,match", [
+    (1000, 8, None, "multiple of 256"), (0, 8, None, "multiple of 256"),
+    (1 << 30, 8, None, "multiple of 256"), (4096, 0, None, "out of range"),
+    (4096, 65536, None, "out of range"),
+    (65792, 8, "cluster", "at most 65536"),
+    (131072, 8, "cluster", "at most 65536"), (4096, 8, "warp", "unknown"),
+])
+def test_spin_plan_refuses_what_no_design_takes(n, B, design, match):
+    with pytest.raises(ValueError, match=match):
+        carrier_cuda.spin_plan(n, B, design)
+
+
+@pytest.mark.parametrize("samprate", [250_000.0, 32_768.0, 256_000.0,
+                                      2_048_000.0 / 7])
+def test_spin_kernel_cycles_round_as_carrier_cycles(samprate):
+    """The "cluster" kernel divides the carrier by the sample rate itself:
+    __fdiv_rn(Hz, fs) with fs as the wrapper passes it
+    (carrier_cuda.kernel_samprate), the IEEE float32 quotient — bit-equal
+    to carrier.carrier_cycles, which K1, K2's plain version and the
+    "two_pass" design use."""
+    rng = np.random.default_rng(int(samprate))
+    f = np.concatenate([rng.uniform(-samprate / 2, samprate / 2, 4000),
+                        20_000.0 + 137.0 * np.arange(128) + 0.125,
+                        [0.0, -0.0, 1e-3]]).astype(np.float32)
+    fs = np.float32(carrier_cuda.kernel_samprate(samprate))
+    assert float(fs) == carrier_cuda.kernel_samprate(samprate)
+    kernel = np.divide(f, fs)  # round to nearest, as __fdiv_rn
+    plain = carrier.carrier_cycles(torch.from_numpy(f), samprate).numpy()
+    assert kernel.dtype == plain.dtype == np.float32
+    assert np.array_equal(kernel.view(np.int32), plain.view(np.int32))
+
+
+def _f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _spin_cluster_mirror(packed, freq, samprate, flip=False, dop=0.0):
+    """The "cluster" design's arithmetic and summation order in torch:
+    per sample spun_group's phase (the group's c256·(idx >> 8) and chirp
+    head once, (idx & 255) as the group's first plus e), one sincos and
+    the rotation; float per-thread partials over the slots (p, e) in
+    order; double over a warp as the shuffle tree sums it, over the warps
+    in order, over the ranks in order; finish_moments and emit_sample in
+    float32.  → (baseband int16, amp, cn0, cycles of every sample as
+    spun_group computes them)."""
+    B, n = packed.shape
+    plan = carrier_cuda.spin_plan(n, B)
+    assert plan["design"] == "cluster"
+    idx = torch.as_tensor(_spin_index(plan, n))      # (C, NG, T, G)
+    valid = idx >= 0
+    sidx = idx.clamp(min=0)
+    words = packed[:, sidx.flatten()].reshape(B, *idx.shape)
+    lo = (words << 16 >> 16).float()
+    hi = (words >> 16).float()
+    i_, q_ = (hi, lo) if flip else (lo, hi)
+    c = freq.to(torch.float32) / _f32(np.float32(samprate))
+    c256 = torch.remainder(c * 256.0, 1.0)
+    cb = c[:, None, None, None, None]
+    idx0 = sidx[..., :1]
+    e = torch.arange(plan["group"], dtype=torch.float32)
+    hi_t = c256[:, None, None, None, None] * (idx0 >> 8).float()
+    lo_t = cb * ((idx0 & 255).float() + e)
+    cyc = hi_t + lo_t
+    if dop:
+        k = sidx[:, :1, :1, :1] // carrier_cuda.CHIRP_CHUNK   # a block's chunk
+        j0 = (idx0 & (carrier_cuda.CHIRP_CHUNK - 1))
+        parts = []
+        for r in range(plan["cluster"]):
+            base = float(r * plan["chunk"] // carrier_cuda.CHIRP_CHUNK) * 8192
+            hd = 0.5 * dop
+            Bk = (dop * base + hd) % 1.0
+            parts.append((np.float32((hd * base * base + hd * base) % 1.0),
+                          np.float32(Bk), np.float32((256.0 * Bk) % 1.0),
+                          np.float32(hd)))
+        A, Bk, B256, C = (_f32([p[m] for p in parts])[:, None, None, None]
+                          for m in range(4))
+        assert k.flatten().tolist() == list(range(plan["cluster"]))
+        t0 = A + B256 * (j0 >> 8).float()
+        jf = j0.float() + e
+        t = t0 + Bk * ((j0 & 255).float() + e)
+        t = t + C * (jf * jf)
+        cyc = cyc + t
+    ang = _f32(6.283185307179586) * cyc
+    s, co = torch.sin(ang), torch.cos(ang)
+    sr = torch.where(valid, i_ * co + q_ * s, 0.0)   # i_·lor − q_·loi, loi = −s
+    si = torch.where(valid, -(i_ * s) + q_ * co, 0.0)
+    # float per thread over its slots (p, e) in order
+    a = torch.zeros((5, B, plan["cluster"], plan["threads"]))
+    for p in range(idx.shape[1]):
+        for g in range(idx.shape[3]):
+            x, y = sr[:, :, p, :, g], si[:, :, p, :, g]
+            for m, v in enumerate((x, y, x * x, y * y, x * y)):
+                a[m] = a[m] + v
+    # double: the warp's shuffle tree, then warps and ranks in order
+    v = a.double().reshape(5, B, plan["cluster"], -1, 32)
+    for off in (16, 8, 4, 2, 1):
+        v = torch.cat([v[..., :off] + v[..., off:2 * off], v[..., off:]], -1)
+    warp = v[..., 0]
+    part = torch.zeros((5, B, plan["cluster"]), dtype=torch.float64)
+    for w in range(warp.shape[-1]):
+        part = part + warp[..., w]
+    tot = torch.zeros((5, B), dtype=torch.float64)
+    for r in range(plan["cluster"]):
+        tot = tot + part[..., r]
+    inv = _f32(np.float32(1.0 / n))
+    m_r, m_i, m_rr, m_ii, m_ri = (tot[m].float() * inv for m in range(5))
+    amp2 = m_r * m_r + m_i * m_i
+    amp = torch.sqrt(amp2)
+    safe2 = torch.where(amp2 > 0, amp2, 1.0)
+    e_rot2 = (m_rr * m_r * m_r + 2.0 * m_ri * m_r * m_i
+              + m_ii * m_i * m_i) / safe2
+    var = torch.maximum(e_rot2 - amp2, amp2 * 3e-7 + 1e-30)
+    cn0 = _f32(10.0 / 2.30258509) * torch.log(samprate * amp2 / (2.0 * var))
+    safe_amp = torch.where(amp > 0, amp, 1.0)
+    ur = torch.where(amp > 0, m_r / safe_amp, 1.0)[:, None, None, None, None]
+    ui = torch.where(amp > 0, -m_i / safe_amp, 0.0)[:, None, None, None, None]
+    rot_i = sr * ui + si * ur
+    q = torch.trunc(rot_i * _f32(0.70710677)).clamp(-32768.0, 32767.0)
+    bb = torch.zeros((B, n), dtype=torch.int16)
+    bb[:, sidx[valid]] = q[:, valid].to(torch.int16)
+    cycles = torch.zeros((B, n))
+    cycles[:, sidx[valid]] = cyc.expand(B, *idx.shape)[:, valid]
+    return bb, amp, cn0, cycles
+
+
+def _spin_signal(B, n, samprate, seed, flip=False, dop=0.0):
+    """(B, 2n) raw int16 of PM carriers 2000 + 137 Hz·i chirped at dop
+    cycles/sample² (restarted at sample 0, as the de-chirp assumes), and
+    the carriers 0.125 Hz off as the spin-down is given them.  With flip
+    the recording stores Q, I: its carriers and chirp are mirrored, so the
+    flipped reading sees them at +dop and -f."""
+    from tests.test_pmdemod import pm_signal
+
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 2, 256) * 2 - 1
+    freqs = 2000.0 + 137.0 * np.arange(B)
+    t = np.arange(n, dtype=np.float64)
+    chirp = np.exp(2j * np.pi * ((-1.0 if flip else 1.0) * dop
+                                 * (t * (t + 1.0) / 2.0) % 1.0))
+    iq = np.stack([pm_signal(n, samprate, f, 1.1, data, 32.0, amp=12000)
+                   * chirp + rng.normal(0, 300, n) + 1j * rng.normal(0, 300, n)
+                   for f in freqs])
+    ri = np.stack([iq.real, iq.imag], axis=-1).reshape(B, -1)
+    raw = np.trunc(np.clip(ri, -32767, 32767)).astype(np.int16)
+    f = freqs.astype(np.float32) + np.float32(0.125)
+    return raw, (-f if flip else f)
+
+
+def _spin_mirror_case(n, flip, doppler):
+    """A mirror case: (raw, carriers, dop, mirror's (bb, amp, cn0),
+    spin_down_plain's), the mirror's phase checked bit for bit against
+    the per-sample formula the plain version and spun_sample use."""
+    samprate, B = 32768.0, 8
+    dop = doppler / samprate**2
+    raw, f = _spin_signal(B, n, samprate, n + int(flip), flip, dop)
+    packed = carrier.pack_raw(torch.from_numpy(raw))
+    bb_m, a_m, c_m, cyc_m = _spin_cluster_mirror(packed, torch.from_numpy(f),
+                                                 samprate, flip, dop)
+    # the direct phase: c256·(i >> 8) + c·(i & 255) (+ the chirp cycles)
+    c = carrier.carrier_cycles(torch.from_numpy(f), samprate)
+    i = torch.arange(n)
+    direct = (torch.remainder(c * 256.0, 1.0)[:, None] * (i >> 8).float()
+              + c[:, None] * (i & 255).float())
+    if dop:
+        direct = direct + carrier_cuda.chirp_cycles(n, dop, torch.device("cpu"))
+    assert torch.equal(cyc_m, direct)
+    plain = carrier_cuda.spin_down_plain(packed, torch.from_numpy(f),
+                                         samprate, flip, dop)
+    return raw, f, dop, (bb_m, a_m, c_m), plain
+
+
+def _assert_spin_close(got, want):
+    (bb_m, a_m, c_m), (bb, amp, cn0) = got, want
+    torch.testing.assert_close(a_m, amp, rtol=1e-5, atol=0)
+    torch.testing.assert_close(c_m, cn0, atol=1e-2, rtol=0)
+    assert int((bb_m.int() - bb.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("n,flip,doppler", [
+    (8192, False, 0.0), (8192, True, 40.0),       # one block
+    (16384, False, 0.0), (16384, True, 40.0),     # a cluster of 2
+    (32768, True, 0.0), (32768, False, 40.0),     # a cluster of 4
+])
+def test_spin_cluster_arithmetic_matches_plain_and_jax(n, flip, doppler):
+    """The torch mirror of the "cluster" design (its group phase, its
+    summation order: float per thread, double over warps and ranks)
+    against spin_down_plain and the JAX package's spin_down_fused
+    (interpret mode), with flip and a rising Doppler rate: amplitude
+    within rtol 1e-5, C/N0 within 1e-2 dB, baseband within 1 LSB (the
+    tolerances of tests/test_torch_carrier.py); its phase per sample
+    bit-equal to the per-sample formula."""
+    import jax.numpy as jnp
+
+    from isee3_decoder_tpu.ops import carrier_pallas as jp
+
+    raw, f, dop, mirror, plain = _spin_mirror_case(n, flip, doppler)
+    _assert_spin_close(mirror, plain)
+    bb_j, a_j, c_j = jp.spin_down_fused(jnp.asarray(raw), jnp.asarray(f),
+                                        32768.0, flip=flip, interpret=True,
+                                        dop=dop)
+    _assert_spin_close(mirror, (torch.from_numpy(np.array(bb_j)),
+                                torch.from_numpy(np.array(a_j, np.float32)),
+                                torch.from_numpy(np.array(c_j, np.float32))))
+
+
+@pytest.mark.parametrize("n,flip", [(8192, False), (16384, False),
+                                    (32768, True)])
+def test_spin_cluster_arithmetic_matches_plain_on_a_falling_chirp(n, flip):
+    """The mirror against spin_down_plain on a falling chirp (-30 Hz/s),
+    at the same tolerances.  Not against the JAX kernel: there Bk = (dop·
+    base + dop/2) mod 1 rounds to 1.0 in float32 and adds up to 255 whole
+    cycles to the float32 phase, and the plain version itself differs from
+    the JAX kernel in interpret mode by 2 LSB (n = 8192 to 32,768; ROADMAP
+    §3)."""
+    _, _, _, mirror, plain = _spin_mirror_case(n, flip, -30.0)
+    _assert_spin_close(mirror, plain)
