@@ -979,27 +979,31 @@ def random_packed(dev, nwords: int, seed: int):
 def check_channelizer(dev, nchan: int = NCHAN, frames: int = WIDE_FRAMES) -> dict:
     """Phase 2's K7a/K7b part: the fused channelizer against its plain
     version (the plain bank + trunc-clip) on random captures whose length
-    leaves whole tiles, a partial last tile and a partial last frame, then
-    at the wideband block's shape, where both are timed.  At most 1 LSB
-    apart on under 1 % of the samples: float32 rounding at truncation
-    boundaries."""
+    leaves whole tiles, a partial last tile and a partial last frame (the
+    last one starting 12 bytes past a 16-byte boundary), then at the
+    wideband block's shape, where both are timed.  At most 1 LSB apart on
+    under 1 % of the samples: float32 rounding at truncation boundaries.
+    The output rows are 16-byte aligned (cc.pitch_words)."""
     import torch
 
     from isee3_decoder_tpu_torch.ops import channelizer_cuda as cc
 
     P = TAPS_PER_BRANCH
     names = {1: "channelize", 2: "channelize2"}
-    for os_, nfr, extra in ((1, 4096 + P - 1, 0), (2, 4096 + P, 0),
-                            (1, 3000, 5), (2, 3001, nchan // 2 + 1)):
-        packed = random_packed(dev, nfr * nchan + extra, seed=nfr)
+    for os_, nfr, extra, off in ((1, 4096 + P - 1, 0, 0), (2, 4096 + P, 0, 0),
+                                 (1, 3000, 5, 0), (2, 3001, nchan // 2 + 1, 3)):
+        packed = random_packed(dev, nfr * nchan + extra + off, seed=nfr)[off:]
         got = cc.channelize_raw_fused(packed, nchan, P, oversample=os_)
         want = cc.channelize_raw_plain(packed, nchan, P, oversample=os_)
         require(got.shape == want.shape and got.dtype == want.dtype,
                 f"K7 {names[os_]}: shape {tuple(got.shape)} vs plain "
                 f"{tuple(want.shape)}")
+        require(got.stride(0) % 8 == 0 and got.data_ptr() % 16 == 0,
+                f"K7 {names[os_]}: rows not 16-byte aligned")
         worst, share = raw_diff(got, want)
-        log(f"  K7 {names[os_]}: {nfr} frames + {extra} words -> "
-            f"{tuple(got.shape)}, max |diff| {worst} LSB, {share:.5%} differ")
+        log(f"  K7 {names[os_]}: {nfr} frames + {extra} words at word "
+            f"offset {off} -> {tuple(got.shape)}, max |diff| {worst} LSB, "
+            f"{share:.5%} differ")
         require(worst <= 1 and share < 0.01, f"K7 {names[os_]} disagrees")
 
     out = {}
@@ -1029,9 +1033,15 @@ def check_channelizer(dev, nchan: int = NCHAN, frames: int = WIDE_FRAMES) -> dic
         )
         torch.cuda.empty_cache()
         r = out[names[os_]]
+        plan = cc.pfb_plan(nchan, P, os_, nsamp,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
         log(f"  K7 {names[os_]} at {nchan} x {frames} frames: max |diff| "
             f"{worst} LSB, {share:.5%} differ; {r['ms']:.3f} ms (plain "
-            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})")
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} by {r['bound_by']})"
+            f"; plan: tile {plan['tile']}, split {plan['split']}, ring "
+            f"{plan['ring']}, {plan['smem']} B shared, {plan['blocks_per_sm']} "
+            f"blocks an SM, grid {plan['grid']}, pitch {plan['pitch']} words")
     return out
 
 

@@ -95,9 +95,10 @@ _SIGNATURES = {
     # nsteps, q1, q2, g1flip, g2flip, smem, stream
     "viterbi_b_launch": (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P),
-    # wide, nwords, taps, twid, M, P, TS, oversample, nsamp, out, smem_bytes,
-    # stream
-    "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _L, _P, _I, _P),
+    # wide, nwords, taps, twid, M, P, ring, TS, threads, oversample, nsamp,
+    # pitch, grid, out, smem_bytes, stream
+    "channelize_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I,
+                          _P, _I, _P),
     # packed, row_stride, first1, wlen, B, n, K, flip, samprate, binsize,
     # tab, smem, spec, freq, cyc, peak, stream
     "windowed_dft_launch": (_P, _L, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I,

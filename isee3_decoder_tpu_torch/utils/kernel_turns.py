@@ -1,8 +1,8 @@
-"""Time kernels K1, K2, K4, K8, K5, K6 and K9 of one checkout of the port,
-for comparing two trees in turns on one card.
+"""Time kernels K1, K2, K4, K7a, K7b, K8, K5, K6 and K9 of one checkout of
+the port, for comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
-        [--kernels k8,k5,k6,k9,k1,k2,k4]
+        [--kernels k8,k5,k6,k9,k1,k2,k4,k7a,k7b]
 
 imports ``isee3_decoder_tpu_torch`` from the checkout at DIR (this file
 imports nothing of the package before that, so it can time an older
@@ -39,7 +39,14 @@ tree), builds its kernels, and prints one JSON line:
   (a) alone.  Event ms and device ms per call, the largest lane's
   micro-steps and ns per micro-step (event ms over those steps); (c)
   against (a) separates one micro-step's latency from the cost of lanes
-  sharing a warp.
+  sharing a warp;
+- K7a and K7b (``channelizer_cuda.channelize_raw_fused`` at oversample 1
+  and 2, 8 taps a branch) on one packed capture of 128 slots x 2^21
+  frames (1 GiB, I and Q uniform in +-20000), and K7b also at the edge
+  path's shape (``k7b_edge``: 32 slots, the 26,176,000 words of
+  chip_smoke.py phase 7): event ms and device ms per call, the launch
+  plan where the tree has one, and the bytes bound (every word read
+  once, every (I, Q) pair written once, at 3.35 TB/s).
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
@@ -50,7 +57,9 @@ frequency within 5e-3 Hz, amplitude within rtol 1e-5, C/N0 within 1e-2
 dB, baseband within 1 LSB; K2: amplitude within rtol 1e-5, C/N0
 within 1e-2 dB, baseband within 1 LSB; K4: bits and [np, gamma, cycles, t] bit for
 bit, against ``fano_walk_plain`` run on the CPU once per set of inputs
-and kept in build/kernel_turns/ for the later turns of a call).  Every
+and kept in build/kernel_turns/ for the later turns of a call; K7a/K7b:
+at most 1 LSB from ``channelize_raw_plain`` on under 1 % of the values).
+Every
 CUDA-event time is taken before the first torch.profiler session, which
 slows every later launch of the process.  Needs a CUDA card; the card's nvidia-smi name and power limit
 are in the line.
@@ -119,7 +128,11 @@ def _device_ms(torch, fn, reps: int, warmup: int = 5) -> tuple[float, float, dic
     return sum(by_name.values()), count / reps, by_name
 
 
-KERNELS = ("k8", "k5", "k6", "k9", "k1", "k2", "k4")
+KERNELS = ("k8", "k5", "k6", "k9", "k1", "k2", "k4", "k7a", "k7b")
+# the edge path's capture (chip_smoke.py phase 7): 3 frames of 2048
+# symbols and 400 more at 1024 sym/s, 4.096 Msps
+EDGE_WORDS = int((3 * 2048 + 400) / 1024.0 * 4_096_000.0)
+HBM_BYTES_PER_S = 3.35e12
 # kernel names of the spin-down in any tree: the two passes (older trees,
 # and the "two_pass" design) and the cluster kernel
 SPIN_KERNELS = ("moments_kernel", "emit_kernel", "spin_cluster_kernel")
@@ -461,6 +474,50 @@ def main() -> int:
                 fano_cuda.fano_walk(m4, regs, dcfg.code, delta, maxcycles)
 
             timed.append((f"k4{name}", k4, 5 if name == "b" else 10, rec))
+
+    # ---- K7a and K7b at 128 x 2^21 frames; K7b at the edge path's shape
+    if want & {"k7a", "k7b"}:
+        from isee3_decoder_tpu_torch.ops import channelizer_cuda as cc
+
+        def capture(nwords: int, seed: int):
+            gen.manual_seed(seed)
+            iq = torch.randint(-20000, 20000, (2, nwords), generator=gen,
+                               device=dev, dtype=torch.int32)
+            return (iq[0] & 0xFFFF) | (iq[1] << 16)
+
+        P = 8
+        wide = capture(128 << 21, 7)
+        cases = [c for c in (("k7a", wide, 128, 1), ("k7b", wide, 128, 2))
+                 if c[0] in want]
+        if "k7b" in want:
+            cases.append(("k7b_edge", capture(EDGE_WORDS, 3), 32, 2))
+        for name, x, M, os_ in cases:
+            got = cc.channelize_raw_fused(x, M, P, oversample=os_)
+            ref = cc.channelize_raw_plain(x, M, P, oversample=os_)
+            worst, ndiff = 0, 0
+            for r in range(0, M, 8):
+                d = (got[r:r + 8].int() - ref[r:r + 8].int()).abs()
+                worst = max(worst, int(d.max()))
+                ndiff += int((d > 0).sum())
+            share = ndiff / ref.numel()
+            nsamp = ref.shape[1] // 2
+            ok7 = worst <= 1 and share < 0.01
+            out[name] = {
+                "shape": f"{M} x {x.numel() // M} frames, oversample {os_}",
+                "ok": ok7, "max_abs_err": worst, "share_differ": share,
+                "row_stride": got.stride(0),
+                "plan": (cc.pfb_plan(M, P, os_, nsamp)
+                         if hasattr(cc, "pfb_plan") else None),
+                "bound_ms": (4 * x.numel() + 4 * M * nsamp)
+                / HBM_BYTES_PER_S * 1e3}
+            del got, ref
+            torch.cuda.empty_cache()
+
+            def k7(x=x, M=M, os_=os_):
+                cc.channelize_raw_fused(x, M, P, oversample=os_)
+
+            timed.append((name, k7, 10, out[name]))
+            oks.append(ok7)
 
     for name, fn, reps, rec in timed:
         rec["fft_ms" if name == "fft" else "ms"] = _event_ms(torch, fn, reps)

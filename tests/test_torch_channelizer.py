@@ -197,9 +197,10 @@ def test_kernel_tile_fits_shared_memory(nchan, oversample):
     """The launch geometry the wrapper hands the kernel, checked where no
     card is needed: a power-of-two even tile whose shared memory fits."""
     assert tfused.supports(nchan)
-    tile = tfused._tile(nchan)
+    plan = tfused.pfb_plan(nchan, P, oversample, 1000)
+    tile = plan["tile"]
     assert tile >= 32 and tile & (tile - 1) == 0
-    assert tfused._smem_bytes(nchan, P, oversample, tile) <= tfused._SMEM_MAX
+    assert plan["smem"] <= tfused._SMEM_MAX
     L = 1000
     want = L - P + 1 if oversample == 1 else 2 * (L - P)
     assert tfused._nsamp(L * nchan + 3, nchan, P, oversample) == want

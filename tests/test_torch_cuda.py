@@ -714,7 +714,10 @@ def _assert_raw_close(got: torch.Tensor, want: torch.Tensor) -> None:
      (128, 1, 1000, 3),  # partial last tile, partial last frame
      (128, 2, 1001, 70),
      (64, 1, 777, 0),
+     (64, 2, 501, 33),
+     (256, 1, 301, 0),
      (256, 2, 300, 5),
+     (32, 1, 1203, 17),
      (32, 2, 515, 0)],
 )
 def test_k7_matches_plain(dev, nchan, oversample, nframes, extra):
@@ -732,12 +735,31 @@ def test_k7_matches_plain(dev, nchan, oversample, nframes, extra):
     nout = (nframes - 8 + 1 if oversample == 1
             else 2 * (nframes - 8 + (extra >= nchan // 2)))
     assert tuple(got.shape) == (nchan, 2 * nout)
+    # rows of pitch_words(nout) words: 16-byte aligned
+    assert got.stride() == (2 * channelizer_cuda.pitch_words(nout), 1)
+    assert got.data_ptr() % 16 == 0
     _assert_raw_close(got, want)
     with _kernels.plain_reference():
         again = channelizer_cuda.channelize_raw_fused(packed, nchan, 8,
                                                       oversample=oversample)
     assert torch.equal(again, want)
     assert _kernels.LAUNCHES[name] == n0 + 1
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("oversample", [1, 2])
+def test_k7_takes_a_capture_at_any_word_offset(dev, oversample, off):
+    """A capture that starts 4·off bytes past a 16-byte boundary: the
+    kernel's bulk copies start on the boundary below each tile and end on
+    the one above it."""
+    nchan = 128
+    packed = _packed(dev, 700 * nchan + 9 + off, seed=off)[off:]
+    assert packed.data_ptr() % 16 == 4 * off
+    got = channelizer_cuda.channelize_raw_fused(packed, nchan, 8,
+                                                oversample=oversample)
+    want = channelizer_cuda.channelize_raw_plain(packed, nchan, 8,
+                                                 oversample=oversample)
+    _assert_raw_close(got, want)
 
 
 @pytest.mark.parametrize("oversample", [1, 2])
@@ -757,9 +779,11 @@ def test_k7_saturates_like_plain(dev, oversample):
         assert int(got.min()) >= -32767
 
 
-def test_k7_other_tap_counts(dev):
-    """taps_per_branch other than 8, with a prototype of the caller's."""
-    nchan, P = 64, 5
+@pytest.mark.parametrize("P", [5, 12, 16])
+def test_k7_other_tap_counts(dev, P):
+    """taps_per_branch other than 8, with a prototype of the caller's: a
+    ring of 8 with zero taps past P, and rings of 16."""
+    nchan = 64
     rng = np.random.default_rng(0)
     taps = (rng.normal(0, 0.05, nchan * P)).astype(np.float32)
     packed = _packed(dev, 400 * nchan, seed=2)

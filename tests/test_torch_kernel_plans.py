@@ -1,7 +1,8 @@
 """Launch plans of the kernels K5 (csrc/viterbi.cu ``viterbi_a_kernel``),
 K6 (csrc/viterbi.cu ``viterbi_b_kernel``), K8 (csrc/carrier.cu
-``windowed_search_kernel``), K9 (csrc/carrier.cu ``pm_scan_kernel``) and
-the spin-down of K1 and K2 (csrc/carrier.cu ``spin_cluster_kernel``),
+``windowed_search_kernel``), K9 (csrc/carrier.cu ``pm_scan_kernel``), K7a
+and K7b (csrc/channelizer.cu ``pfb_kernel``) and the spin-down of K1 and
+K2 (csrc/carrier.cu ``spin_cluster_kernel``),
 checked on the CPU: the tiles cover every state, sample, column and bin
 exactly once, every decision word has one writer, shared memory stays
 within one block's limit, and K6's swizzled row puts a warp's accesses
@@ -9,10 +10,11 @@ in 32 banks.  The kernels' index arithmetic is mirrored here (the radix
 stages of K5 with their split branch parities; K6's register stages,
 lane steps by exchange and (mt, mm) table; the 16 x C split of K8 with
 its integer phase walks; K9's 256-point column DFTs by two 16-point
-stages and its outer sum; the spin-down's group phase and summation
-order) and held against the plain versions (the spin-down also against
-the JAX package's kernel in interpret mode), since the kernels
-themselves run only on the card.
+stages and its outer sum; K7's rounded bulk copies, register ring and
+M1 x M2 DFT split; the spin-down's group phase and summation order) and
+held against the plain versions (the spin-down also against the JAX
+package's kernel in interpret mode), since the kernels themselves run
+only on the card.
 """
 
 import itertools
@@ -23,7 +25,8 @@ import torch
 
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, SYNC_STATE, CodeSpec
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
-from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
+from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, channelizer_cuda
+from isee3_decoder_tpu_torch.ops import fano_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import _walk_inputs
@@ -1332,3 +1335,211 @@ def test_spin_cluster_arithmetic_matches_plain_on_a_falling_chirp(n, flip):
     §3)."""
     _, _, _, mirror, plain = _spin_mirror_case(n, flip, -30.0)
     _assert_spin_close(mirror, plain)
+
+
+@pytest.mark.parametrize("n,doppler,lsb", [(8192, -30.0, 2), (32768, -30.0, 2),
+                                           (8192, 40.0, 1), (32768, 40.0, 1)])
+def test_spin_down_plain_against_jax_on_chirps(n, doppler, lsb):
+    """Pins the falling-chirp gap of ROADMAP §3: the port's spin_down_plain
+    and the JAX package's spin_down_fused (interpret mode) on the same
+    chirped carriers, baseband within 2 LSB at -30 Hz/s (the float32 Bk
+    just below 1 puts whole cycles into both packages' phase, each its
+    own way) and within the 1 LSB contract at +40 Hz/s; amplitude within
+    rtol 1e-5 and C/N0 within 1e-2 dB at both rates.  A larger gap fails
+    here."""
+    import jax.numpy as jnp
+
+    from isee3_decoder_tpu.ops import carrier_pallas as jp
+
+    samprate = 32768.0
+    dop = doppler / samprate**2
+    raw, f = _spin_signal(8, n, samprate, n + 3, False, dop)
+    bb, amp, cn0 = carrier_cuda.spin_down_plain(
+        carrier.pack_raw(torch.from_numpy(raw)), torch.from_numpy(f),
+        samprate, False, dop)
+    bb_j, a_j, c_j = jp.spin_down_fused(jnp.asarray(raw), jnp.asarray(f),
+                                        samprate, flip=False, interpret=True,
+                                        dop=dop)
+    torch.testing.assert_close(amp, torch.from_numpy(np.array(a_j, np.float32)),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(cn0, torch.from_numpy(np.array(c_j, np.float32)),
+                               atol=1e-2, rtol=0)
+    gap = int((bb.int() - torch.from_numpy(np.array(bb_j)).int()).abs().max())
+    assert gap <= lsb
+
+
+# ---------------------------------------------------------------- K7 plan
+
+K7_SHAPES = [(m, os_) for m in (32, 64, 128, 256) for os_ in (1, 2)]
+
+
+@pytest.mark.parametrize("P", [8, 5, 12])
+@pytest.mark.parametrize("nchan,oversample", K7_SHAPES)
+def test_pfb_plan_fits_shared_memory_and_registers(nchan, oversample, P):
+    """K7's plan: its DFT split, tile, ring and tap tasks fit together
+    (every tap task one branch of one stream walking whole rings, lanes of
+    a warp along r in the tap stage and along j in the DFT stages), two
+    stages hold the ring's furthest read and the rounded copy, the block
+    fits one block's shared memory, the grid is persistent over the
+    tiles, and each thread's registers (ring, taps, accumulators; M1
+    complex values in the first DFT stage) stay within what the blocks an
+    SM holds leave it."""
+    nsamp = 2 * 1000 - 3
+    plan = channelizer_cuda.pfb_plan(nchan, P, oversample, nsamp)
+    m1, m2 = plan["split"]
+    tile, ring, run, T = plan["tile"], plan["ring"], plan["run"], plan["threads"]
+    assert m1 * m2 == nchan and {m1, m2} <= {4, 8, 16}
+    assert P <= ring in (8, 16) and run % ring == 0
+    assert plan["frames"] * oversample == tile and plan["frames"] % run == 0
+    assert tile % 32 == 0 and T % nchan == 0 and T % 32 == 0
+    tasks = nchan * tile // run
+    assert tasks % T == 0  # every thread takes as many tap tasks
+    assert (tile * m2) % T == 0 and (tile * m1) % T == 0
+    # the furthest stage word the tap stage reads: the last run of the
+    # odd stream's upper branches, 3 words of misalignment ahead
+    far = 3 + (plan["frames"] - run + 1 + run + ring - 2) * nchan + nchan - 1
+    assert far < plan["stage_words"]
+    assert 3 + plan["copy_words"] + 3 <= plan["stage_words"]  # rounded copy
+    assert plan["stage_words"] % 4 == 0  # stage 1 starts 16-byte aligned
+    assert plan["smem"] <= SMEM_MAX and plan["stages"] == 2
+    blocks, regs = plan["blocks_per_sm"], plan["regs"]
+    assert 1 <= blocks and blocks * (plan["smem"] + 1024) <= 233_472
+    assert blocks * T * regs <= 65536
+    # ring pairs, taps, two sums and ~16 for addresses and indices; the
+    # first DFT stage's M1 values and as many temporaries
+    assert 3 * ring + 2 + 16 <= regs and 4 * m1 + 8 <= regs
+    assert plan["ntiles"] == -(-nsamp // tile)
+    assert plan["grid"] == min(plan["ntiles"], blocks * 132)
+    assert plan["pitch"] % 32 == 0 and 0 <= plan["pitch"] - nsamp < 32
+
+
+@pytest.mark.parametrize("nchan,P,match", [(256, 100, "shared memory"),
+                                           (128, 17, "register ring"),
+                                           (96, 8, "power of two")])
+def test_pfb_plan_refuses_what_k7_does_not_take(nchan, P, match):
+    with pytest.raises(ValueError, match=match):
+        channelizer_cuda.pfb_plan(nchan, P, 1, 1000)
+
+
+def _unpack_words(w):
+    """int32 packed words → complex128 (I low half, Q high half)."""
+    w = np.asarray(w, np.int64) & 0xFFFFFFFF
+    i = ((w & 0xFFFF) ^ 0x8000) - 0x8000
+    q = ((w >> 16) ^ 0x8000) - 0x8000
+    return i.astype(np.float64) + 1j * q.astype(np.float64)
+
+
+def _pfb_mirror(wide, nchan, P, oversample, taps, mis, rng):
+    """A numpy mirror of pfb_kernel's index arithmetic, tile by tile: the
+    rounded bulk copy from a capture that starts ``mis`` words past a
+    16-byte boundary (the words around it and the stage's stale words
+    random), the tap tasks' branch, column, frame offset and register
+    ring, the M1 × M2 split with the twiddle table (the odd samples'
+    sign at oversample 2 from its second table, odd k1 negated), and the
+    store into rows of the plan's pitch.  Returns the
+    (M, pitch) int32 rows (unwritten words -1) and the tap-stage reads
+    per (tile, task, frame)."""
+    M, OS = nchan, oversample
+    nwords = wide.shape[0]
+    nsamp = channelizer_cuda._nsamp(nwords, M, P, OS)
+    plan = channelizer_cuda.pfb_plan(M, P, OS, nsamp)
+    tile, frames, ring, run = (plan["tile"], plan["frames"], plan["ring"],
+                               plan["run"])
+    m1, m2 = plan["split"]
+    sw = plan["stage_words"]
+    # memory: the capture at word 4 + mis, random words around it
+    mem = rng.integers(-2**31, 2**31, nwords + 16).astype(np.int32)
+    mem[4 + mis: 4 + mis + nwords] = wide
+    end16 = -(-(4 + mis + nwords) // 4) * 4  # the last word's granule end
+    h = np.zeros((ring, M))
+    h[:P] = np.asarray(taps, np.float64).reshape(P, M)
+    tw = channelizer_cuda._twiddles(M, torch.device("cpu")).numpy()
+    tw = tw[:, 0].astype(np.float64) + 1j * tw[:, 1]
+    w1 = np.exp(-2j * np.pi * np.outer(np.arange(m1), np.arange(m1)) / m1)
+    w2 = np.exp(-2j * np.pi * np.outer(np.arange(m2), np.arange(m2)) / m2)
+    task = np.arange(M * tile // run)
+    r, s, rn = task % M, (task // M) % OS, task // (M * OS)
+    col = np.where(s == 1, (r + M // 2) % M, r)
+    d = np.where(s == 1, r >= M // 2, 0)
+    out = np.full((M, plan["pitch"]), -1, np.int64)
+    reads = np.zeros((plan["ntiles"], task.size, run + ring), np.int64)
+    for t in range(plan["ntiles"]):
+        w0 = t * frames * M
+        nw = min(plan["copy_words"], nwords - w0)
+        nbytes = -(-4 * (mis + nw) // 16) * 16
+        src = 4 + mis + w0 - mis
+        assert src % 4 == 0 and nbytes <= 4 * sw
+        assert src + nbytes // 4 <= end16  # within the last word's granule
+        stage = rng.integers(-2**31, 2**31, sw).astype(np.int32)
+        stage[: nbytes // 4] = mem[src: src + nbytes // 4]
+        xs = stage[mis:]
+        idx0 = (rn * run + d) * M + col
+        assert idx0.max() + (run + ring - 2) * M < xs.size
+        ringv = np.zeros((ring, task.size), complex)
+        for q in range(ring - 1):
+            ringv[q] = _unpack_words(xs[idx0 + q * M])
+            reads[t, :, q] += 1
+        A = np.full((tile, M), np.nan, complex)
+        for f in range(run):
+            q = f + ring - 1
+            ringv[q % ring] = _unpack_words(xs[idx0 + q * M])
+            reads[t, :, q] += 1
+            a = sum(ringv[(f + p) % ring] * h[p, r] for p in range(ring))
+            j = OS * (rn * run + f) + s
+            assert np.isnan(A[j, r]).all()  # one writer per (j, r)
+            A[j, r] = a
+        assert not np.isnan(A).any()
+        for r2 in range(m2):  # stage 1, back into slots m2·k1 + r2
+            X = A[:, m2 * np.arange(m1) + r2] @ w1
+            turn = np.broadcast_to(tw[r2 * m1 + np.arange(m1)], X.shape).copy()
+            if OS == 2:  # odd samples: the table with odd k1 negated
+                turn[1::2, 1::2] *= -1
+            A[:, m2 * np.arange(m1) + r2] = X * turn
+        j0 = t * tile
+        valid = j0 + np.arange(tile) < nsamp
+        for k1 in range(m1):  # stage 2: bins k1 + m1·k2
+            Y = A[:, m2 * k1 + np.arange(m2)] @ w2
+            q_ = np.trunc(np.clip(np.stack([Y.real, Y.imag]), -32767, 32767))
+            q_ = q_.astype(np.int64)
+            word = (q_[0] & 0xFFFF) | ((q_[1] & 0xFFFF) << 16)
+            for k2 in range(m2):
+                out[k1 + m1 * k2, j0 + np.flatnonzero(valid)] = word[valid, k2]
+    return out, reads
+
+
+@pytest.mark.parametrize("nchan,oversample,P,nframes,extra,mis", [
+    (32, 1, 8, 300, 5, 1),      # a partial last tile and frame
+    (32, 2, 8, 515, 0, 0),
+    (64, 1, 8, 277, 0, 2),
+    (64, 2, 5, 201, 40, 3),     # 5 taps in a ring of 8
+    (128, 1, 8, 200, 3, 1),
+    (128, 2, 8, 161, 70, 0),    # over half a frame trails: the odd stream's
+    (128, 1, 12, 150, 0, 3),    # a ring of 16
+    (256, 1, 8, 120, 5, 0),
+    (256, 2, 12, 110, 128, 1),
+])
+def test_pfb_mirror_matches_plain(nchan, oversample, P, nframes, extra, mis):
+    """The mirror of pfb_kernel against channelize_raw_plain: at most 1 LSB
+    apart on under 1 % of the values (its DFTs in float64, the plain
+    bank's in float32: truncation-boundary flips), nothing written past
+    nsamp, and every tap task reading each frame of its ring walk once."""
+    rng = np.random.default_rng(nchan + 7 * nframes)
+    nwords = nframes * nchan + extra
+    iq = rng.integers(-20000, 20000, (2, nwords))
+    wide = ((iq[0] & 0xFFFF) | (iq[1] << 16)).astype(np.int64)
+    wide = wide.astype(np.uint32).view(np.int32)
+    taps = (channelizer_cuda.default_taps(nchan, P, oversample) if P == 8
+            else rng.normal(0, 0.05, nchan * P).astype(np.float32))
+    got, reads = _pfb_mirror(wide, nchan, P, oversample, taps, mis, rng)
+    run, ring = channelizer_cuda.PFB_RUN, channelizer_cuda.pfb_plan(
+        nchan, P, oversample, 1)["ring"]
+    assert (reads[:, :, : run + ring - 1] == 1).all()
+    want = channelizer_cuda.channelize_raw_plain(
+        torch.from_numpy(wide), nchan, P, taps, oversample)
+    nsamp = want.shape[1] // 2
+    assert (got[:, nsamp:] == -1).all()
+    got16 = torch.from_numpy(got[:, :nsamp].astype(np.uint32).view(np.int32)
+                             .copy()).view(torch.int16)
+    diff = (got16.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 0.01
