@@ -375,28 +375,41 @@ def check_kernels(dev, nchan: int = NCHAN, n_lanes: int = 256) -> dict:
              f"{nchan} x 4096")
     del packed, nb_raw
 
-    # ---- K3: prefix sum, exact, at T=32 blocks (8.4 s of signal)
+    # ---- K3: prefix sum, exact, at T=32 blocks (8.4 s of signal) and at
+    #      the narrowband path's 67 pm blocks of 4096 (phase 10)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    bb = torch.randint(-32768, 32768, (32, nchan, n), generator=gen,
-                       device=dev, dtype=torch.int32).to(torch.int16)
-    cs_k = prefix_cuda.prefix_sum_blocks(bb, tail=1)
-    cs_p = prefix_cuda.prefix_sum_blocks_plain(bb, tail=1)
-    err = int((cs_k.long() - cs_p.long()).abs().max())
-    log(f"  K3 prefix_sum: {tuple(cs_k.shape)} max |diff| {err}")
-    require(err == 0, "K3 prefix sum not exact")
-    # the library yardstick: one torch.cumsum over the same values in the
-    # output's (B, T*n) order (inclusive, no tail column), timed only here
-    flat = bb.permute(1, 0, 2).reshape(nchan, -1).contiguous()
-    out["prefix_sum"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks(bb, tail=1), 10),
-        plain_ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks_plain(bb, 1), 3),
-        library_ms=cuda_ms(lambda: torch.cumsum(flat, dim=1, dtype=torch.int32),
-                           10),
-        **bound(bb.numel() * 2 + cs_k.numel() * 4, bb.numel(), I32_OPS_PER_S),
-    )
-    del bb, cs_k, cs_p, flat
+    for key, T3, n3 in (("", 32, n), ("narrowband_", 67, 4096)):
+        bb = torch.randint(-32768, 32768, (T3, nchan, n3), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int16)
+        cs_k = prefix_cuda.prefix_sum_blocks(bb, tail=1)
+        cs_p = prefix_cuda.prefix_sum_blocks_plain(bb, tail=1)
+        err = int((cs_k.long() - cs_p.long()).abs().max())
+        log(f"  K3 prefix_sum: {tuple(cs_k.shape)} max |diff| {err}")
+        require(err == 0, f"K3 prefix sum not exact at {tuple(bb.shape)}")
+        del cs_p
+        # the library yardstick: one torch.cumsum over the same values in
+        # the output's (B, T*n) order (inclusive, no tail column), timed
+        # only here
+        flat = bb.permute(1, 0, 2).reshape(nchan, -1).contiguous()
+        rec = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: prefix_cuda.prefix_sum_blocks(bb, tail=1), 10),
+            plain_ms=cuda_ms(
+                lambda: prefix_cuda.prefix_sum_blocks_plain(bb, 1), 3),
+            library_ms=cuda_ms(
+                lambda: torch.cumsum(flat, dim=1, dtype=torch.int32), 10),
+            **bound(bb.numel() * 2 + cs_k.numel() * 4, bb.numel(),
+                    I32_OPS_PER_S),
+        )
+        if key:
+            out["prefix_sum"].update({key + k: v for k, v in rec.items()})
+        else:
+            out["prefix_sum"] = rec
+        log(f"  K3 at {T3} x {nchan} x {n3}: {rec['ms']:.4f} ms (bound "
+            f"{rec['bound_ms']:.4f} by {rec['bound_by']}, torch.cumsum "
+            f"{rec['library_ms']:.4f}, plain {rec['plain_ms']:.3f})")
+        del bb, cs_k, flat
 
     # ---- K4: the Fano walk alone, on both designs — metric precompute
     # and root setup are done once, outside the timed calls; bits and
@@ -1622,7 +1635,7 @@ def kernels_device_ms(fn, reps: int) -> tuple[float, float, dict]:
 
 
 def profile_kernels(dev, checks: dict, batch: int) -> None:
-    """Phase 12: the device time of K1, K2, K8, K5, K6, K9 and K4 from
+    """Phase 12: the device time of K1, K2, K3, K8, K5, K6, K9 and K4 from
     torch.profiler, beside their CUDA-event times of phase 2 and 5 (the
     profiler's hooks slow every later launch of the process, so this runs
     after every timed block).  K8 at the narrowband shape, with
@@ -1631,12 +1644,13 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
     and the cluster spin-down, timed apart, with torch.fft.fft over all bins
     of the same rows; K2 on the same rows must show the cluster spin-down
     alone; K5/K6 over one K=24 cycle at B=2 and at the threshold
-    block's batch (the record keeps the latter); K9 at the bench shape of
-    phase 2; K4 at phase 2's case (a), 256 lanes at 12 cycles/bit."""
+    block's batch (the record keeps the latter); K9 and K3 at the bench
+    shapes of phase 2; K4 at phase 2's case (a), 256 lanes at 12 cycles/bit."""
     import torch
 
     from isee3_decoder_tpu_torch.config import DEFAULT_CODE as code
     from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
+    from isee3_decoder_tpu_torch.ops import prefix_cuda
     from isee3_decoder_tpu_torch.ops import viterbi_cuda as vc
 
     _, _, raw, search = k8_inputs(dev)
@@ -1710,6 +1724,17 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         PROFILE_CALLS, "pm_scan_kernel")
     checks["pm_scan"]["device_ms"] = k9_dev
     del args
+    # K3 at the bench shape of phase 2: its one launch (the workspace's
+    # memset is no kernel)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bb = torch.randint(-32768, 32768, (32, NCHAN, 65536), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int16)
+    k3_dev = kernel_device_ms(
+        lambda: prefix_cuda.prefix_sum_blocks(bb, tail=1), PROFILE_CALLS,
+        "prefix_tile_kernel")
+    checks["prefix_sum"]["device_ms"] = k3_dev
+    del bb
     # K4 at phase 2's case (a): its one launch on the warp design
     dcfg, cases = k4_inputs(dev)
     _, m4, regs, maxcycles = cases[0]
@@ -1724,7 +1749,8 @@ def profile_kernels(dev, checks: dict, batch: int) -> None:
         f"K5/K6 at K=24: "
         + ", ".join(f"B={B} {a:.4f} / {b:.4f} ms" for B, (a, b)
                     in dev_ms.items())
-        + f"; K9 at {NCHAN} x 32 x 65,536, K = 107: {k9_dev:.4f} ms; K4 "
+        + f"; K9 at {NCHAN} x 32 x 65,536, K = 107: {k9_dev:.4f} ms; K3 at "
+        f"32 x {NCHAN} x 65,536: {k3_dev:.4f} ms; K4 "
         f"(warp) at 256 lanes, 12 cycles/bit: {k4_dev:.4f} ms")
     torch.cuda.empty_cache()
 
@@ -2132,6 +2158,9 @@ def main() -> int:
         "spin_down": "cluster: one thread-block cluster per channel, one "
                      "read and one sincosf a sample, the moments across the "
                      "cluster by distributed shared memory",
+        "prefix_sum": "tiles along each channel with a decoupled look-back: "
+                      "persistent blocks take tiles by ticket, two cp.async "
+                      "stages, 16-byte stores from a padded staging buffer",
     }
     kernels = [
         {
@@ -2149,7 +2178,9 @@ def main() -> int:
                 "spin_device_ms", "search_bound_ms", "search_library_ms",
                 "search_library_device_ms", "latency_bound_ms",
                 "max_lane_steps", "ns_per_step", "thread_ms",
-                "thread_ns_per_step", "two_pass_ms")
+                "thread_ns_per_step", "two_pass_ms", "narrowband_ms",
+                "narrowband_plain_ms", "narrowband_library_ms",
+                "narrowband_bound_ms")
                if key in checks[name]},
         }
         for name in meta

@@ -81,8 +81,8 @@ _SIGNATURES = {
     # cluster, threads, bb, stat, mom, stream
     "spin_down_launch": (_P, _I, _P, _I, _I, _I, _F, _I, _D, _I, _I, _P,
                          _P, _P, _P),
-    # blocks, T, B, n, tail, out, stream
-    "prefix_sum_launch": (_P, _I, _I, _I, _I, _P, _P),
+    # blocks, T, B, n, tail, out, ws, tile, threads, grid, smem, stream
+    "prefix_sum_launch": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     # metrics4, regs, B, N, tail_start, kb, delta, max_total, poly1,
     # poly2, g1flip, g2flip, warp_lanes, smem, tape, bits, stats, stream
     "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

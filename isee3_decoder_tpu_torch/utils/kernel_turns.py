@@ -1,8 +1,8 @@
-"""Time kernels K1, K2, K4, K7a, K7b, K8, K5, K6 and K9 of one checkout of
-the port, for comparing two trees in turns on one card.
+"""Time kernels K1, K2, K3, K4, K7a, K7b, K8, K5, K6 and K9 of one
+checkout of the port, for comparing two trees in turns on one card.
 
     python isee3_decoder_tpu_torch/utils/kernel_turns.py --tree DIR [--label L]
-        [--kernels k8,k5,k6,k9,k1,k2,k4,k7a,k7b]
+        [--kernels k8,k5,k6,k9,k1,k2,k3,k3nb,k4,k7a,k7b]
 
 imports ``isee3_decoder_tpu_torch`` from the checkout at DIR (this file
 imports nothing of the package before that, so it can time an older
@@ -46,7 +46,16 @@ tree), builds its kernels, and prints one JSON line:
   path's shape (``k7b_edge``: 32 slots, the 26,176,000 words of
   chip_smoke.py phase 7): event ms and device ms per call, the launch
   plan where the tree has one, and the bytes bound (every word read
-  once, every (I, Q) pair written once, at 3.35 TB/s).
+  once, every (I, Q) pair written once, at 3.35 TB/s);
+- K3 (``prefix_cuda.prefix_sum_blocks``, tail = 1) at the bench shape,
+  32 x 128 x 65,536 (``k3``), and at the narrowband path's, 67 x 128 x
+  4096 (``k3nb``), on random int16 from a seeded torch.Generator: event
+  ms and device ms per call (the workspace's memset included; ``kernels``
+  has it apart), the launch plan where the tree has one, the bytes bound
+  (2 bytes read and 4 written a sample, 4 a tail column), and
+  ``torch.cumsum(..., dtype=torch.int32)`` over the same values in (B,
+  T·n) order timed both ways (``cumsum_ms``, ``cumsum_device_ms``), the
+  library yardstick.
 
 Each kernel's result is held against its plain version first (K8: peak
 bins equal, frequency within 5e-3 Hz, bins within 1e-5 of the largest;
@@ -58,7 +67,8 @@ dB, baseband within 1 LSB; K2: amplitude within rtol 1e-5, C/N0
 within 1e-2 dB, baseband within 1 LSB; K4: bits and [np, gamma, cycles, t] bit for
 bit, against ``fano_walk_plain`` run on the CPU once per set of inputs
 and kept in build/kernel_turns/ for the later turns of a call; K7a/K7b:
-at most 1 LSB from ``channelize_raw_plain`` on under 1 % of the values).
+at most 1 LSB from ``channelize_raw_plain`` on under 1 % of the values;
+K3: equal to ``prefix_sum_blocks_plain``).
 Every
 CUDA-event time is taken before the first torch.profiler session, which
 slows every later launch of the process.  Needs a CUDA card; the card's nvidia-smi name and power limit
@@ -128,7 +138,11 @@ def _device_ms(torch, fn, reps: int, warmup: int = 5) -> tuple[float, float, dic
     return sum(by_name.values()), count / reps, by_name
 
 
-KERNELS = ("k8", "k5", "k6", "k9", "k1", "k2", "k4", "k7a", "k7b")
+KERNELS = ("k8", "k5", "k6", "k9", "k1", "k2", "k3", "k3nb", "k4", "k7a",
+           "k7b")
+# K3's shapes: the bench block's 32 pm blocks of 65,536, and the
+# narrowband block's 67 of 4096, 128 channels each
+K3_SHAPES = {"k3": (32, 128, 65536), "k3nb": (67, 128, 4096)}
 # the edge path's capture (chip_smoke.py phase 7): 3 frames of 2048
 # symbols and 400 more at 1024 sym/s, 4.096 Msps
 EDGE_WORDS = int((3 * 2048 + 400) / 1024.0 * 4_096_000.0)
@@ -224,8 +238,9 @@ def main() -> int:
     out = {"label": args_cli.label or args_cli.tree, "card": _card(),
            "package": str(pathlib.Path(_kernels.__file__).parent)}
     gen = torch.Generator(device=dev)
-    # (name, function, reps, record): every event time is taken first, in
-    # this order, then every device time
+    # (name, function, reps, record, key prefix: "" for the kernel, else a
+    # library yardstick's): every event time is taken first, in this
+    # order, then every device time
     timed = []
     oks = []
 
@@ -265,7 +280,8 @@ def main() -> int:
 
         out["k8"] = {"shape": f"{B} x {n}, K = {K}", "ok": ok8,
                      "rel_err": rel}
-        timed += [("k8", k8, 50, out["k8"]), ("fft", fft, 50, out["k8"])]
+        timed += [("k8", k8, 50, out["k8"], ""),
+                  ("k8", fft, 50, out["k8"], "fft_")]
         oks.append(ok8)
 
     # ---- K5 over a whole K = 24 row phase at the threshold block's batch
@@ -290,7 +306,7 @@ def main() -> int:
             vc.cycle_a(mk, syms, code, rowb, base, da)
 
         out["k5"] = {"shape": f"K = 24, B = {B}, {rowb} steps", "ok": ok5}
-        timed.append(("k5", k5, 20, out["k5"]))
+        timed.append(("k5", k5, 20, out["k5"], ""))
         oks.append(ok5)
         del dk, dp, m0
 
@@ -315,7 +331,7 @@ def main() -> int:
             vc.cycle_b(m6, sb, code, nb, db)
 
         out["k6"] = {"shape": f"K = 24, B = {B}, {nb} steps", "ok": ok6}
-        timed.append(("k6", k6, 20, out["k6"]))
+        timed.append(("k6", k6, 20, out["k6"], ""))
         oks.append(ok6)
 
     # ---- K9, K1 and K2 at the bench shape
@@ -363,7 +379,7 @@ def main() -> int:
         out["k9"] = {"shape": f"{B} x {T} x {n}, K = {K}", "ok": ok9,
                      "max_dfreq_hz": float(d[2]), "max_dcn0_db": float(d[1]),
                      "max_dbaseband_lsb": bb_err}
-        timed.append(("k9", k9, 5, out["k9"]))
+        timed.append(("k9", k9, 5, out["k9"], ""))
         oks.append(ok9)
 
     # ---- K1 at the bench shape: one clean block of locked carriers
@@ -394,7 +410,7 @@ def main() -> int:
         def k1():
             carrier_cuda.pm_locked_fused(*k1_args)
 
-        timed.append(("k1", k1, 20, out["k1"]))
+        timed.append(("k1", k1, 20, out["k1"], ""))
         oks.append(ok1)
 
     # ---- K2 at the bench shape (without, then with flip and a Doppler
@@ -435,7 +451,7 @@ def main() -> int:
             def k2(spin=spin):
                 carrier_cuda.spin_down_fused(*spin)
 
-            timed.append((name, k2, 50, out[name]))
+            timed.append((name, k2, 50, out[name], ""))
             oks.append(ok2)
 
     # ---- K4: the Fano walk alone in cases (a), (b), (c)
@@ -473,7 +489,7 @@ def main() -> int:
             def k4(m4=m4, regs=regs, maxcycles=maxcycles):
                 fano_cuda.fano_walk(m4, regs, dcfg.code, delta, maxcycles)
 
-            timed.append((f"k4{name}", k4, 5 if name == "b" else 10, rec))
+            timed.append((f"k4{name}", k4, 5 if name == "b" else 10, rec, ""))
 
     # ---- K7a and K7b at 128 x 2^21 frames; K7b at the edge path's shape
     if want & {"k7a", "k7b"}:
@@ -516,17 +532,52 @@ def main() -> int:
             def k7(x=x, M=M, os_=os_):
                 cc.channelize_raw_fused(x, M, P, oversample=os_)
 
-            timed.append((name, k7, 10, out[name]))
+            timed.append((name, k7, 10, out[name], ""))
             oks.append(ok7)
 
-    for name, fn, reps, rec in timed:
-        rec["fft_ms" if name == "fft" else "ms"] = _event_ms(torch, fn, reps)
+    # ---- K3 at the bench shape and at the narrowband path's
+    if want & set(K3_SHAPES):
+        from isee3_decoder_tpu_torch.ops import prefix_cuda
+
+        for name, (T3, B3, n3) in K3_SHAPES.items():
+            if name not in want:
+                continue
+            gen.manual_seed(3)
+            bb = torch.randint(-32768, 32768, (T3, B3, n3), generator=gen,
+                               device=dev, dtype=torch.int32).to(torch.int16)
+            got = prefix_cuda.prefix_sum_blocks(bb, tail=1)
+            ok3 = bool(torch.equal(
+                got, prefix_cuda.prefix_sum_blocks_plain(bb, 1)))
+            del got
+            torch.cuda.empty_cache()
+            flat = bb.permute(1, 0, 2).reshape(B3, T3 * n3).contiguous()
+            plan = (prefix_cuda.prefix_plan(T3, B3, n3, 1)
+                    if hasattr(prefix_cuda, "prefix_plan") else None)
+            out[name] = {
+                "shape": f"{T3} x {B3} x {n3}, tail 1", "ok": ok3,
+                "plan": plan and {k: v for k, v in plan.items()
+                                  if not k.startswith("row_")},
+                "bound_ms": (6 * bb.numel() + 4 * B3) / HBM_BYTES_PER_S * 1e3}
+
+            def k3(bb=bb):
+                prefix_cuda.prefix_sum_blocks(bb, tail=1)
+
+            def cumsum(flat=flat):
+                torch.cumsum(flat, dim=1, dtype=torch.int32)
+
+            timed += [(name, k3, 20, out[name], ""),
+                      (name, cumsum, 20, out[name], "cumsum_")]
+            oks.append(ok3)
+
+    for name, fn, reps, rec, pre in timed:
+        rec[pre + "ms"] = _event_ms(torch, fn, reps)
         if name.startswith("k4"):
             rec["ns_per_step"] = rec["ms"] * 1e6 / rec["max_lane_steps"]
-    for name, fn, reps, rec in timed:
+    for name, fn, reps, rec, pre in timed:
         dms, per_call, by_name = _device_ms(torch, fn, reps)
-        if name == "fft":
-            rec.update(fft_device_ms=dms, fft_kernels_per_call=per_call)
+        if pre:
+            rec.update({pre + "device_ms": dms,
+                        pre + "kernels_per_call": per_call})
         else:
             rec.update(device_ms=dms, kernels_per_call=per_call,
                        kernels=by_name)

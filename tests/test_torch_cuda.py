@@ -261,14 +261,70 @@ def test_k2_refuses_a_pinned_design_it_cannot_run(dev):
                                      design="cluster")
 
 
-@pytest.mark.parametrize("T,B,n,tail", [(3, 5, 1000, 2), (2, 130, 4096, 0)])
-def test_k3_exact(dev, T, B, n, tail):
+def _k3_input(dev, T, B, n, seed=None):
     gen = torch.Generator(device=dev)
-    gen.manual_seed(T * n)
-    bb = torch.randint(-32768, 32768, (T, B, n), generator=gen, device=dev,
-                       dtype=torch.int32).to(torch.int16)
+    gen.manual_seed(T * n if seed is None else seed)
+    return torch.randint(-32768, 32768, (T, B, n), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int16)
+
+
+# 16-byte loads (n % 8 == 0) and 2-byte ones; one tile a row and many
+# (67 x 4096: a tile spans two pm blocks, 34 tiles a row, look-backs past
+# 32 predecessors at B = 1); every row phase of the output (tail 0, 1, 3)
+@pytest.mark.parametrize("T,B,n,tail", [
+    (3, 5, 1000, 2), (2, 130, 4096, 0), (1, 1, 1, 0), (1, 3, 7, 1),
+    (67, 1, 1000, 1), (3, 130, 1001, 3), (67, 5, 4096, 1), (3, 1, 8195, 0),
+    (1, 130, 8195, 3), (67, 1, 4096, 0), (32, 3, 65536, 1)])
+def test_k3_exact(dev, T, B, n, tail):
+    bb = _k3_input(dev, T, B, n)
     assert torch.equal(prefix_cuda.prefix_sum_blocks(bb, tail),
                        prefix_cuda.prefix_sum_blocks_plain(bb, tail))
+
+
+@pytest.mark.parametrize("T,B,n,tail", [(3, 2, 32768, 1), (1, 3, 100_001, 2)])
+def test_k3_exact_where_int32_wraps(dev, T, B, n, tail):
+    # a run of 32767s long enough that the sums pass 2^31 and wrap
+    bb = torch.full((T, B, n), 32767, dtype=torch.int16, device=dev)
+    bb[:, 1:] = _k3_input(dev, T, B - 1, n).clamp(min=30000)
+    got = prefix_cuda.prefix_sum_blocks(bb, tail)
+    assert int(got[0, -1]) < 0  # wrapped
+    assert torch.equal(got, prefix_cuda.prefix_sum_blocks_plain(bb, tail))
+
+
+def test_k3_input_views_and_flat(dev):
+    # an input at an offset of 2 bytes takes the 2-byte loads, one at 16
+    # the 16-byte ones; prefix_sum_flat is one pm block of L samples
+    base = _k3_input(dev, 1, 1, 3 * 5 * 4096 + 8)
+    for off in (1, 8):
+        bb = base.reshape(-1)[off:off + 3 * 5 * 4096].view(3, 5, 4096)
+        assert torch.equal(prefix_cuda.prefix_sum_blocks(bb, 1),
+                           prefix_cuda.prefix_sum_blocks_plain(bb, 1))
+    flat = _k3_input(dev, 1, 16, 20_000)[0]
+    assert torch.equal(prefix_cuda.prefix_sum_flat(flat),
+                       prefix_cuda.prefix_sum_blocks_plain(flat[None]))
+
+
+def test_k3_calls_in_a_row_and_on_two_streams(dev):
+    # every call clears its own workspace: a second call, and calls on two
+    # streams at once, never read another call's status words
+    a = _k3_input(dev, 32, 128, 4096, seed=1)
+    b = _k3_input(dev, 67, 64, 4096, seed=2)
+    want_a = prefix_cuda.prefix_sum_blocks_plain(a, 1)
+    want_b = prefix_cuda.prefix_sum_blocks_plain(b, 1)
+    for _ in range(2):
+        assert torch.equal(prefix_cuda.prefix_sum_blocks(a, 1), want_a)
+        assert torch.equal(prefix_cuda.prefix_sum_blocks(b, 1), want_b)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize(dev)
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            outs.append((prefix_cuda.prefix_sum_blocks(a, 1), want_a))
+        with torch.cuda.stream(s2):
+            outs.append((prefix_cuda.prefix_sum_blocks(b, 1), want_b))
+    torch.cuda.synchronize(dev)
+    for got, want in outs:
+        assert torch.equal(got, want)
 
 
 # K4 cases: code, nbits, lanes, sigma, cycles/bit, share of lanes skipped

@@ -2,8 +2,8 @@
 K6 (csrc/viterbi.cu ``viterbi_b_kernel``), K8 (csrc/carrier.cu
 ``windowed_search_kernel``), K9 (csrc/carrier.cu ``pm_scan_kernel``), K7a
 and K7b (csrc/channelizer.cu ``pfb_kernel``) and the spin-down of K1 and
-K2 (csrc/carrier.cu ``spin_cluster_kernel``),
-checked on the CPU: the tiles cover every state, sample, column and bin
+K2 (csrc/carrier.cu ``spin_cluster_kernel``) and K3 (csrc/prefix.cu
+``prefix_tile_kernel``), checked on the CPU: the tiles cover every state, sample, column and bin
 exactly once, every decision word has one writer, shared memory stays
 within one block's limit, and K6's swizzled row puts a warp's accesses
 in 32 banks.  The kernels' index arithmetic is mirrored here (the radix
@@ -11,7 +11,8 @@ stages of K5 with their split branch parities; K6's register stages,
 lane steps by exchange and (mt, mm) table; the 16 x C split of K8 with
 its integer phase walks; K9's 256-point column DFTs by two 16-point
 stages and its outer sum; K7's rounded bulk copies, register ring and
-M1 x M2 DFT split; the spin-down's group phase and summation order) and
+M1 x M2 DFT split; the spin-down's group phase and summation order; K3's
+input groups, decoupled look-back and single and 16-byte stores) and
 held against the plain versions (the spin-down also against the JAX
 package's kernel in interpret mode), since the kernels themselves run
 only on the card.
@@ -26,7 +27,7 @@ import torch
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, SYNC_STATE, CodeSpec
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, channelizer_cuda
-from isee3_decoder_tpu_torch.ops import fano_cuda
+from isee3_decoder_tpu_torch.ops import fano_cuda, prefix_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import _walk_inputs
@@ -1543,3 +1544,258 @@ def test_pfb_mirror_matches_plain(nchan, oversample, P, nframes, extra, mis):
     diff = (got16.int() - want.int()).abs()
     assert int(diff.max()) <= 1
     assert float((diff > 0).float().mean()) < 0.01
+
+
+# ---------------------------------------------------------------- K3 plan
+
+_M32 = 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("tail", [0, 1, 3])
+@pytest.mark.parametrize("T", [1, 3, 67])
+@pytest.mark.parametrize("n", [1000, 1001, 4096, 8195])
+def test_k3_plan_fits_shared_memory_and_registers(n, T, tail):
+    """K3's plan: a block fits one block's shared memory, the blocks an SM
+    holds fit its shared memory, registers and threads, the grid is
+    persistent over the tiles, the tiles of a row cover each of its T·n
+    columns once (the channel's last tile also its tail columns), the
+    workspace holds the counter and a status word a tile, and each row's
+    single-word head and tail are what its phase leaves."""
+    for B in (1, 5, 130):
+        plan = prefix_cuda.prefix_plan(T, B, n, tail)
+        L, tile, threads = T * n, plan["tile"], plan["threads"]
+        assert plan["items"] * threads == tile and tile % 32 == 0
+        assert threads % 32 == 0 and threads // 32 <= plan["lookback"] == 32
+        assert plan["smem"] <= SMEM_MAX and plan["stages"] == 2
+        blocks = plan["blocks_per_sm"]
+        assert 1 <= blocks and blocks * (plan["smem"] + 1024) <= 233_472
+        assert blocks * threads * plan["regs"] <= 65536
+        assert blocks * threads <= 2048
+        # 16 samples, their sum and scan, the loads' addresses
+        assert plan["regs"] >= 32
+        # loads in flight an SM: the next tile of every block
+        assert blocks * 2 * tile >= 32 * 1024
+        per_row = plan["tiles_per_row"]
+        assert plan["ntiles"] == B * per_row
+        assert plan["grid"] == min(plan["ntiles"], blocks * 132)
+        assert plan["workspace"] == 8 * (2 + plan["ntiles"])
+        assert plan["load"] == ("cp.async" if n % 8 == 0 else "scalar")
+        cover = np.zeros(L, np.int64)
+        for i in range(per_row):
+            cover[i * tile: min(L, (i + 1) * tile)] += 1
+        assert (cover == 1).all() and (per_row - 1) * tile < L
+        for b in sorted({0, min(1, B - 1), B - 1}):
+            h, t = plan["row_heads"][b], plan["row_tails"][b]
+            assert 0 <= h < 4 and 0 <= t < 4 and h <= L
+            assert (b * (L + tail) + h) % 4 == 0 or h == L
+            last = L - (per_row - 1) * tile
+            assert (last - min(h, last) - t) % 4 == 0
+
+
+@pytest.mark.parametrize("T,B,n,tail", [(0, 1, 8, 0), (1, 0, 8, 0),
+                                        (1, 1, 0, 0), (1, 1, 8, -1),
+                                        (2, 1, 2**30, 0), (1, 1, 2**31 - 1, 1)])
+def test_k3_plan_refuses_what_k3_does_not_take(T, B, n, tail):
+    with pytest.raises(ValueError, match="unsupported shape"):
+        prefix_cuda.prefix_plan(T, B, n, tail)
+
+
+def _k3_look_back(status, row, i, rounds):
+    """Warp 0's look-back of tile i (status words of its row at row +
+    0 .. i - 1): its prefix, or None while a lane still spins on a tile
+    that has not published.  Counts the rounds in rounds[0]."""
+    prefix = 0
+    for base in itertools.count(i - 1, -32):
+        rounds[0] += 1
+        idx = base - np.arange(32)
+        s = np.where(idx >= 0, status[row + np.maximum(idx, 0)], 2 << 32)
+        flags, v = s >> 32, s & _M32
+        incl = flags == 2
+        if incl.any():
+            nearest = int(np.argmax(incl))
+            # every tile before an inclusive prefix has published
+            assert (flags[nearest:] > 0).all()
+            if (flags[:nearest] == 0).any():
+                return None
+            return (prefix + int(v[:nearest + 1].sum())) & _M32
+        if (flags == 0).any():
+            return None
+        prefix = (prefix + int(v.sum())) & _M32
+
+
+def _k3_mirror(blocks, tail, rng, in_flight, out_phase=0, aligned=True,
+               newest_first=False):
+    """csrc/prefix.cu's prefix_tile_kernel walked in numpy: tickets handed
+    out in order to ``in_flight`` tiles at a time, which advance one step
+    (read and reduce, then publish; look back; store) at a time in a
+    random order (``newest_first``: the newest tile that can, so that
+    every tile in flight publishes its aggregate before the oldest looks
+    back); the 16-byte groups (``aligned`` and n % 8 == 0: each
+    within one pm block, through a stage whose stale words are masked) or
+    single samples each thread reads; the thread, warp and tile sums; the
+    staging buffer with its pad words; the single and 16-byte stores of an
+    output whose first word lies ``out_phase`` words past a 16-byte
+    boundary; the tail columns.  → (out (B, T·n + tail) as uint32 in
+    int64, writes of each output word, (b, head, tail) of every tile,
+    deepest look-back in rounds)."""
+    T, B, n = blocks.shape
+    plan = prefix_cuda.prefix_plan(T, B, n, tail)
+    L, tile, NT, IT = T * n, plan["tile"], plan["threads"], plan["items"]
+    per_row, ntiles = plan["tiles_per_row"], plan["ntiles"]
+    flat = blocks.reshape(-1).astype(np.int64)
+    row_words = L + tail
+    out = np.zeros(B * row_words, np.int64)
+    writes = np.zeros(B * row_words, np.int64)
+    status = np.zeros(ntiles, np.int64)
+    vec = plan["load"] == "cp.async" and aligned
+    tid = np.arange(NT)
+    edges, deepest = [], 0
+
+    def read(b, s0, ln):
+        if vec:
+            stage = rng.integers(-32768, 32768, tile)  # an earlier tile's
+            q = np.arange(tile // 8)
+            f = s0 + 8 * q
+            q, f = q[f < L], f[f < L]
+            t = f // n
+            r = f - t * n
+            assert (r + 8 <= n).all()  # a group lies in one pm block
+            src = ((t * B + b) * n + r)[:, None] + np.arange(8)
+            stage[(8 * q)[:, None] + np.arange(8)] = flat[src]
+            slots = stage.reshape(-1, 8)
+            sw = ((tid >> 2) & 1)[:, None]
+            a, c = slots[2 * tid + sw[:, 0]], slots[2 * tid + (sw[:, 0] ^ 1)]
+            x = np.concatenate([np.where(sw, c, a), np.where(sw, a, c)], 1)
+            j = IT * tid[:, None] + 2 * (np.arange(IT) // 2)
+            return np.where(j < ln, x, 0)
+        x = np.zeros((NT, IT), np.int64)
+        j0 = IT * tid
+        t = (s0 + j0) // n
+        r = s0 + j0 - t * n
+        for m in range(IT):
+            ok = j0 + m < ln
+            x[ok, m] = flat[(t[ok] * B + b) * n + r[ok]]
+            r = np.where(ok, r + 1, r)
+            t = np.where(r == n, t + 1, t)
+            r = np.where(r == n, 0, r)
+        return x
+
+    def step(st):
+        nonlocal deepest
+        k = st["k"]
+        b, i = k % B, k // B
+        s0 = i * tile
+        ln = min(tile, L - s0)
+        me = b * per_row + i
+        if st["phase"] == 0:  # read, reduce, publish, stage
+            x = read(b, s0, ln) & _M32
+            sums = x.sum(1) & _M32
+            inc = (np.cumsum(sums.reshape(-1, 32), 1) & _M32).reshape(-1)
+            wtot = inc[31::32]
+            agg = int(wtot.sum()) & _M32
+            status[me] = ((2 if i == 0 else 1) << 32) | agg
+            # each warp's sums from the tile's start: the totals of the
+            # warps before it, then its own scan, into the padded buffer
+            before = (np.cumsum(wtot) - wtot) & _M32
+            run = (before[tid // 32] + inc - sums) & _M32
+            j = np.arange(tile)
+            so = np.full(tile + tile // 32, -1, np.int64)
+            so[j + (j >> 5)] = ((run[:, None] + np.cumsum(x, 1) - x)
+                                & _M32).reshape(-1)
+            st.update(so=so, agg=agg, phase=1)
+            if i == 0:
+                st.update(prefix=0, phase=2)
+            return True
+        if st["phase"] == 1:  # look back
+            rounds = [0]
+            prefix = _k3_look_back(status, b * per_row, i, rounds)
+            deepest = max(deepest, rounds[0])
+            if prefix is None:
+                return False
+            status[me] = (2 << 32) | ((prefix + st["agg"]) & _M32)
+            st.update(prefix=prefix, phase=2)
+            return True
+        # store singly and by 16 bytes, adding the tile's prefix
+        so = (st["so"] + st["prefix"]) & _M32
+        base = b * row_words + s0
+        head = min(ln, (-(out_phase + base)) % 4)
+        nvec = (ln - head) // 4
+        jv = head + 4 * np.arange(nvec)
+        assert ((out_phase + base + jv) % 4 == 0).all()
+        for c in range(4):
+            out[base + jv + c] = so[jv + c + ((jv + c) >> 5)]
+            writes[base + jv + c] += 1
+        single = np.r_[np.arange(head), np.arange(head + 4 * nvec, ln)]
+        out[base + single] = so[single + (single >> 5)]
+        writes[base + single] += 1
+        edges.append((b, head, ln - head - 4 * nvec))
+        if i == per_row - 1:
+            out[b * row_words + L:(b + 1) * row_words] = \
+                (st["prefix"] + st["agg"]) & _M32
+            writes[b * row_words + L:(b + 1) * row_words] += 1
+        st["phase"] = 3
+        return True
+
+    ticket, active, done = 0, [], 0
+    while done < ntiles:
+        while len(active) < in_flight and ticket < ntiles:
+            active.append({"k": ticket, "phase": 0})
+            ticket += 1
+        # some tile can always advance: the oldest one waits on nothing
+        order = (range(len(active) - 1, -1, -1) if newest_first
+                 else rng.permutation(len(active)))
+        assert any(step(active[a]) for a in order)
+        done += sum(st["phase"] == 3 for st in active)
+        active = [st for st in active if st["phase"] != 3]
+    return out.reshape(B, row_words), writes.reshape(B, row_words), edges, deepest
+
+
+@pytest.mark.parametrize("T,B,n,tail,in_flight,out_phase,aligned,newest", [
+    (1, 1, 1000, 0, 1, 0, True, False),     # one tile, one pm block
+    (3, 5, 1000, 1, 8, 0, True, False),     # groups of 8 in pm blocks of 1000
+    (3, 130, 1001, 3, 64, 0, True, False),  # 2-byte loads, every row phase
+    (67, 1, 4096, 1, 40, 0, True, True),    # tiles span two pm blocks; the
+    (67, 1, 4096, 3, 40, 0, True, False),   # look-back past 32 tiles
+    (67, 5, 4096, 0, 100, 2, True, False),  # an output 8 bytes past a boundary
+    (3, 1, 8195, 3, 3, 1, True, True),      # pm blocks across tile edges
+    (1, 130, 8195, 1, 200, 0, True, False),
+    (67, 1, 1001, 0, 20, 3, True, False),
+    (3, 5, 4096, 1, 16, 0, False, False),   # a misaligned input: 2-byte loads
+])
+def test_k3_mirror_matches_plain(T, B, n, tail, in_flight, out_phase,
+                                 aligned, newest):
+    """The mirror of prefix_tile_kernel against prefix_sum_blocks_plain,
+    bit for bit: every output word written exactly once, the 16-byte
+    stores aligned, each tile's single words its row's head and tail as
+    the plan gives them, and look-backs past 32 predecessors where 40
+    tiles of one row are in flight."""
+    rng = np.random.default_rng(T * n + B)
+    blocks = rng.integers(-32768, 32768, (T, B, n)).astype(np.int16)
+    got, writes, edges, deepest = _k3_mirror(blocks, tail, rng, in_flight,
+                                             out_phase, aligned, newest)
+    want = prefix_cuda.prefix_sum_blocks_plain(torch.from_numpy(blocks), tail)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64) & _M32)
+    assert (writes == 1).all()
+    plan = prefix_cuda.prefix_plan(T, B, n, tail)
+    if out_phase == 0:
+        heads = {b: h for b, h, _ in edges}
+        assert all(heads[b] == plan["row_heads"][b] for b in heads)
+        L, tile = T * n, plan["tile"]
+        last = L - (plan["tiles_per_row"] - 1) * tile
+        for b, h, t in edges:
+            assert t in ((tile - h) % 4, plan["row_tails"][b]) and t < 4
+            assert plan["row_tails"][b] == (last - min(h, last)) % 4
+    if newest and in_flight > 33:
+        assert deepest >= 2  # a look-back read more than one round
+
+
+def test_k3_mirror_where_int32_wraps():
+    # a run of 32767s: the sums pass 2^31 and wrap, as the plain version's
+    blocks = np.full((3, 2, 32768), 32767, np.int16)
+    blocks[:, 1] = -32768
+    rng = np.random.default_rng(5)
+    got, writes, _, _ = _k3_mirror(blocks, 1, rng, 6)
+    want = prefix_cuda.prefix_sum_blocks_plain(torch.from_numpy(blocks), 1)
+    assert int(want[0, -1]) < 0
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64) & _M32)
+    assert (writes == 1).all()

@@ -52,6 +52,20 @@ def test_k3_plain_matches_pallas_prefix_kernel(T, B, n):
     )
 
 
+@pytest.mark.parametrize("B,L", [(8, 1024), (16, 3 * 2048), (8, 65536)])
+def test_k3_prefix_sum_flat_matches_pallas(B, L):
+    # K3's second call site: (B, L) int16 → (B, L) int32, no tail column;
+    # a row of 32767s runs up to 2^31 - 2^16 at L = 65536
+    rng = np.random.default_rng(B + L)
+    samples = rng.integers(-32768, 32768, (B, L)).astype(np.int16)
+    samples[0] = 32767
+    want = np.asarray(jpp.prefix_sum_flat(jnp.asarray(samples),
+                                          interpret=True))
+    got = tpp.prefix_sum_flat(torch.from_numpy(samples))
+    assert got.dtype == torch.int32 and got.shape == (B, L)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_integrate_and_timesearch_match_jax():
     bb = _baseband(1, 3, 40_000, SYM.symbolsamples, 900.0)
     csum = np.array(jsym.prefix_sum(jnp.asarray(bb), pad_to=bb.shape[1] + 512))
