@@ -25,9 +25,14 @@ the classic Viterbi API (kernel K10, one launch per trellis step): K10
 against its plain version at K=24, the threshold block again with
 ``DecodeConfig(viterbi_backend="jnp")``, ``vdecode_stream`` on both
 backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
-CLI in a subprocess.  Last, after every timed block, the device time of
-kernels K1 (its search launch and spin-down apart), K2, K8, K5, K6, K9
-and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
+CLI in a subprocess.  Then the streaming chain (phase 13:
+``receive_stream`` on the clean and mid recordings in ragged chunks
+against one call, its soft symbols bit for bit, a checkpointed resume,
+and a 16-channel threshold stream through K5/K6) and the reference's
+stage tools as processes on the card (phase 14: ``pmdemod | symdemod |
+decode`` over pipes, ``bitsync``).  Last, after every timed block, the
+device time of kernels K1 (its search launch and spin-down apart), K2,
+K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
 checked on both designs ("cluster", one thread-block cluster per
 channel, which the main path takes, and "two_pass", for rows longer than
 a cluster holds).  K4 is checked on both its designs
@@ -38,7 +43,8 @@ error, or when any check fails.  Imports no JAX.
 
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
-path, its error against the plain version, its time, the plain
+path (and of phases 13-14 alone, ``stream_cli_launches``), its error
+against the plain version, its time, the plain
 version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
 do over the peak rate of their type, for this run's inputs; for K4,
@@ -68,6 +74,20 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "isee3_decoder_tpu_torch"
+# runs ``{pkg}.cli.{tool}`` as ``python -c TOOL_SHIM <counts.json> args``
+# and writes the process's kernel launch counts and the backend of each
+# stage to counts.json when the tool exits
+TOOL_SHIM = """import json, sys
+from {pkg} import _kernels
+from {pkg}.cli import _io, {tool} as tool
+out = sys.argv.pop(1)
+try:
+    _io.run_main(tool.main)
+finally:
+    with open(out, "w") as f:
+        json.dump({{"launches": _kernels.LAUNCHES,
+                   "backend": _kernels.backend_used}}, f)
+"""
 
 # bench configuration (the JAX package's bench.py)
 SAMPRATE = 250_000.0
@@ -1944,6 +1964,303 @@ def classic_vtest() -> None:
     log(f"phase 11 classic Viterbi (e): vtest CLI ok "
         f"({time.perf_counter() - t0:.1f} s)")
 
+def flat_records(records) -> list:
+    """(start symbol, good, decoder, bytes) of every lane of a list of
+    FrameRecords, in stream order."""
+    return [(int(r.start_symbol[b]), bool(r.good[b]), int(r.decoder[b]),
+             bytes(r.data[b]))
+            for r in records for b in range(r.data.shape[0])]
+
+
+def stream_chunks(iq, cuts, cfg, carry=None, trim: bool = True,
+                  stop: int | None = None):
+    """receive_stream over iq[:, lo:hi] for consecutive cuts (int16
+    values), a synchronize after each chunk: (records, carry, wall seconds
+    of each chunk).  ``stop`` ends after that many chunks."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.pipeline import receive_stream
+
+    recs, walls = [], []
+    pairs = list(zip(cuts[:-1], cuts[1:]))[:stop]
+    for lo, hi in pairs:
+        t0 = time.perf_counter()
+        r, carry = receive_stream(iq[:, lo:hi], cfg, carry, trim=trim)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        recs.extend(r)
+    return recs, carry, walls
+
+
+def stream_regime(dev, iq, cfg, label: str, seconds: float) -> tuple:
+    """One recording through receive_stream: one call on the whole
+    recording, then ragged chunks (1 s, 3,000 samples — less than one pm
+    block —, 2 s, the rest) with trim=False, whose frames must equal the
+    one call's and whose soft symbols must equal demod_to_symbols' bit for
+    bit; then the chunks again, stopped after the second, the carry saved
+    with save_pytree, restored onto a fresh template on the card and
+    resumed: the same frames again.  Returns (the chunked run's flat
+    records, its launches, its backends)."""
+    import tempfile
+
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        chain_carry_template,
+        demod_to_symbols,
+        receive_stream,
+    )
+    from isee3_decoder_tpu_torch.utils import checkpoint
+
+    B = iq.shape[0]
+    sr = int(cfg.pm.samprate)
+    cuts = [0, 2 * sr, 2 * (sr + 3000), 2 * (3 * sr + 3000), iq.shape[1]]
+    t0 = time.perf_counter()
+    one, _ = receive_stream(iq, cfg)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    want = flat_records(one)
+    soft1 = demod_to_symbols(iq, cfg)[0]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    recs, carry, walls = stream_chunks(iq, cuts, cfg, trim=False)
+    launches, backends = dict(_kernels.LAUNCHES), dict(_kernels.backend_used)
+    got = flat_records(recs)
+    require(got == want, f"stream {label}: chunked frames differ from one "
+            f"call ({len(got)} against {len(want)} lanes)")
+    require(carry.soft_base == 0, f"stream {label}: soft trimmed")
+    n = min(carry.soft.shape[1], soft1.shape[1])
+    require(n >= soft1.shape[1] - cfg.sym.nsymbols
+            and torch.equal(carry.soft[:, :n], soft1[:, :n]),
+            f"stream {label}: chunked soft symbols differ from the one-shot "
+            f"soft symbols")
+    # stop after the second chunk, checkpoint, restore on the card, resume
+    early, half, _ = stream_chunks(iq, cuts, cfg, stop=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "carry.npz")
+        t1 = time.perf_counter()
+        checkpoint.save_pytree(path, half)
+        template = chain_carry_template(checkpoint.load_manifest(path), cfg,
+                                        device=dev)
+        restored = checkpoint.restore_pytree(path, template)
+        t_ckpt = time.perf_counter() - t1
+        nbytes = os.path.getsize(path)
+    require(restored.bb.is_cuda and restored.soft.is_cuda
+            and restored.first.is_cuda, f"stream {label}: restored carry not "
+            f"on the card")
+    late, _, _ = stream_chunks(iq, cuts[2:], cfg, carry=restored)
+    require(flat_records(early) + flat_records(late) == want,
+            f"stream {label}: the resumed stream's frames differ")
+    good = sum(1 for f in got if f[1])
+    mix: dict = {}
+    for f in got:
+        mix[f[2]] = mix.get(f[2], 0) + 1
+    wall = sum(walls)
+    log(f"  stream {label}: {B} ch x {seconds:.2f} s, {len(got)} frames "
+        f"({good} good), decoders {mix}; ms per chunk "
+        f"{[round(w * 1e3, 3) for w in walls]} (one call "
+        f"{t_one * 1e3:.3f}); real time {B * seconds / wall:.1f} channels; "
+        f"chunked == one call, soft symbols bit-exact; checkpoint "
+        f"{nbytes} bytes, save + restore {t_ckpt * 1e3:.1f} ms, resumed == "
+        f"one call; launches {launches}")
+    return got, launches, backends
+
+
+def phase_stream(dev, nsamples: int, pm, sym, rec_thr, nframes: int) -> dict:
+    """Phase 13: the streaming chain (models/pipeline.receive_stream) at
+    the bench configuration on the clean and mid recordings of phases 3
+    and 4 (128 channels, 8.39 s; mid with the bench's DecodeConfig(),
+    QLEC on), and a threshold recording: the 16 channels of phase 5's
+    block with the most Viterbi lanes, decoded with the reference's -p
+    (``DecodeConfig(persistent=True)``: the Viterbi fallback on every
+    Fano failure, not only after a good frame, which two frames a channel
+    seldom give), so that K5/K6 run inside decode_stream.  Returns the
+    launches of the chunked runs."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.decode import (
+        DECODER_QLEC,
+        DECODER_VITERBI,
+        DecodeConfig,
+    )
+    from isee3_decoder_tpu_torch.models.pipeline import PipelineConfig
+
+    t0 = time.perf_counter()
+    seconds = nsamples / SAMPRATE
+    cfg = PipelineConfig(pm=pm, sym=sym, decode=DecodeConfig())
+    total: dict = {}
+    for label, noise, seed in (("clean", NOISE_CLEAN, 0), ("mid", NOISE_MID,
+                                                            99)):
+        frames, iq, _ = bench_block(dev, NCHAN, nsamples, noise, seed=seed)
+        got, launches, backends = stream_regime(dev, iq, cfg, label, seconds)
+        sent = {f.tobytes() for f in frames}
+        require(all(f[3] in sent for f in got if f[1]),
+                f"stream {label}: a good frame was not sent")
+        require(sum(1 for f in got if f[1]) >= NCHAN * (nframes - 1),
+                f"stream {label}: too few good frames")
+        for k in ("pm_locked", "spin_down", "prefix_sum"):
+            require(launches[k] > 0, f"stream {label}: kernel {k} never "
+                    f"launched")
+        require(backends.get("pm") == "cuda" and backends.get("csum") == "cuda",
+                f"stream {label}: pm / csum stage not on CUDA")
+        if label == "mid":
+            nqlec = sum(1 for f in got if f[2] == DECODER_QLEC)
+            require(nqlec > 0, "stream mid: no QLEC label")
+            require(launches["fano_walk"] > 0, "stream mid: K4 never launched")
+            log(f"  stream mid: {nqlec} QLEC labels on the card")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del iq
+    # threshold: phase 5's block, the 16 channels with the most Viterbi
+    # lanes there
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_THRESHOLD, seed=11)
+    per_chan = (rec_thr.decoder == DECODER_VITERBI).reshape(NCHAN, -1).sum(1)
+    chans = np.argsort(-per_chan, kind="stable")[:16]
+    iq16 = iq[torch.as_tensor(np.sort(chans), device=dev)].contiguous()
+    del iq
+    persistent = PipelineConfig(pm=pm, sym=sym,
+                                decode=DecodeConfig(persistent=True))
+    got, launches, backends = stream_regime(dev, iq16, persistent,
+                                            "threshold (-p)", seconds)
+    sent = {f.tobytes() for f in frames}
+    nvit = sum(1 for f in got if f[2] == DECODER_VITERBI)
+    require(nvit > 0 and launches["viterbi_a"] > 0
+            and launches["viterbi_b"] > 0,
+            f"stream threshold: K5/K6 never launched ({nvit} Viterbi lanes)")
+    require(backends.get("viterbi") == "cuda", "stream threshold: Viterbi "
+            "not on CUDA")
+    nbad_sent = sum(1 for f in got if f[1] and f[3] not in sent)
+    require(nbad_sent == 0, f"stream threshold: {nbad_sent} good frames "
+            f"were not sent")
+    log(f"  stream threshold: {nvit} Viterbi lanes; every good frame sent")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del iq16
+    torch.cuda.empty_cache()
+    log(f"phase 13 stream: clean, mid, threshold chunked == one call, "
+        f"checkpointed resume == one call; launches {total} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def parse_hex_frames(text: str) -> list:
+    """(good, 128 bytes) of each frame the decode tool printed."""
+    from isee3_decoder_tpu_torch.config import FRAMEBITS
+
+    out, cur, good = [], [], False
+    for line in text.splitlines():
+        if line.startswith("Frame "):
+            cur, good = [], "(bad)" not in line
+        elif line.strip() and all(len(t) == 2 for t in line.split()):
+            cur.extend(int(t, 16) for t in line.split())
+            if len(cur) == FRAMEBITS // 8:
+                out.append((good, bytes(cur)))
+                cur = []
+    return out
+
+
+def phase_cli(dev) -> dict:
+    """Phase 14: the reference's stage tools as port processes on the
+    card: a one-channel 10 s recording made on the card written to a file,
+    ``pmdemod -W 100 | symdemod -c 1024. | decode`` over pipes (the
+    baseband teed to a file), then ``bitsync -c 1024`` on that baseband.
+    Every good frame decode prints must be a sent one, and decode and
+    bitsync must each match one at least; bitsync's frames must equal
+    bitsync_frames' on the same baseband through the kernels' plain
+    versions.  Each tool runs under a shim (TOOL_SHIM) that writes its
+    kernel launch counts and backends on exit; returns their sum."""
+    import shlex
+    import tempfile
+
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.legacy import bitsync_frames
+
+    from isee3_decoder_tpu_torch.utils.devicesignal import (
+        random_frames,
+        synthesize_iq_device,
+        to_raw_int16,
+    )
+
+    t0 = time.perf_counter()
+    frames = random_frames(np.random.default_rng(31), 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    nsamples = int(10.0 * SAMPRATE)
+    iq = synthesize_iq_device(
+        torch.as_tensor(frames[None], device=dev),
+        torch.tensor([20_000.0], device=dev), gen, nsamples,
+        samprate=SAMPRATE, symrate=SYMRATE, noise_std=NOISE_CLEAN)
+    raw = to_raw_int16(iq)[0].cpu().numpy()
+    sent = {f.tobytes() for f in frames}
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, bb = os.path.join(tmp, "input.iq"), os.path.join(tmp, "bb.raw")
+        raw.tofile(rec)
+        outs = {t: os.path.join(tmp, f"{t}.json")
+                for t in ("pmdemod", "symdemod", "decode", "bitsync")}
+
+        def tool(name: str, args: str) -> str:
+            shim = shlex.quote(TOOL_SHIM.format(pkg=PKG, tool=name))
+            return f"{sys.executable} -c {shim} {outs[name]} {args}"
+
+        pipe = (f"set -o pipefail; {tool('pmdemod', f'-q -W 100 {rec}')} "
+                f"| tee {bb} | {tool('symdemod', '-q -c 1024.')} "
+                f"| {tool('decode', '')}")
+        t1 = time.perf_counter()
+        r = subprocess.run(["bash", "-c", pipe], cwd=HERE, capture_output=True,
+                           text=True, timeout=300)
+        t_pipe = time.perf_counter() - t1
+        require(r.returncode == 0, f"CLI pipeline failed: {r.stderr[-2000:]}")
+        decoded = parse_hex_frames(r.stdout)
+        good = [d for g, d in decoded if g]
+        require(good and all(d in sent for d in good),
+                f"CLI pipeline: good frames {len(good)}, not all sent: "
+                f"{r.stdout[-1500:]}")
+        t1 = time.perf_counter()
+        rb = subprocess.run(["bash", "-c", tool("bitsync", f"-c 1024 {bb}")],
+                            cwd=HERE, capture_output=True, text=True,
+                            timeout=300)
+        t_bitsync = time.perf_counter() - t1
+        require(rb.returncode == 0, f"bitsync failed: {rb.stderr[-2000:]}")
+        bframes = [d for _, d in parse_hex_frames(rb.stdout)]
+        nbmatch = sum(1 for d in bframes if d in sent)
+        require(nbmatch >= 1, f"bitsync: no sent frame among {len(bframes)}")
+        t1 = time.perf_counter()
+        with _kernels.plain_reference():
+            plain = bitsync_frames(np.fromfile(bb, "<i2"), SAMPRATE, 1024.0,
+                                   device=dev)
+        t_plain = time.perf_counter() - t1
+        pframes = [bytes(np.asarray(f, np.uint8)) for f in plain.frames]
+        require(bframes == pframes, f"bitsync: frames differ from the plain "
+                f"versions' ({len(bframes)} against {len(pframes)})")
+        per_tool = {}
+        for name, path in outs.items():
+            with open(path) as f:
+                rec_l = json.load(f)
+            per_tool[name] = {k: v for k, v in rec_l["launches"].items() if v}
+            for k, v in rec_l["launches"].items():
+                total[k] = total.get(k, 0) + v
+            if name != "decode":
+                require(all(v == "cuda" for k, v in rec_l["backend"].items()
+                            if k in ("pm", "csum", "viterbi")),
+                        f"{name}: a stage off the card: {rec_l['backend']}")
+    for name, k in (("pmdemod", "pm_locked"), ("pmdemod", "spin_down"),
+                    ("symdemod", "prefix_sum"), ("bitsync", "prefix_sum"),
+                    ("bitsync", "viterbi_acs")):
+        require(per_tool[name].get(k, 0) > 0, f"{name}: kernel {k} never "
+                f"launched")
+    log(f"phase 14 CLI: pmdemod -W 100 | symdemod -c 1024. | decode on a 10 s "
+        f"recording: {len(decoded)} frames, {len(good)} good, all sent "
+        f"({t_pipe:.1f} s); bitsync -c 1024: {len(bframes)} frames, "
+        f"{nbmatch} sent, == plain versions ({t_bitsync:.1f} s, plain "
+        f"{t_plain:.1f} s); launches per tool {per_tool} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: package {PKG}/ not found beside this script",
@@ -2123,6 +2440,20 @@ def main() -> int:
     classic_vtest()
     log(f"phase 11: ok ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- phases 13-14: the streaming chain with its checkpoint, the stage
+    # tools (run before phase 12, whose profiler must come last)
+    new_launches: dict = {}
+    for path_launches in (phase_stream(dev, nsamples, pm, sym, rec_thr,
+                                       nframes),
+                          phase_cli(dev)):
+        for k, v in path_launches.items():
+            launches[k] += v
+            new_launches[k] = new_launches.get(k, 0) + v
+    for k in ("pm_locked", "spin_down", "prefix_sum", "fano_walk", "viterbi_a",
+              "viterbi_b", "viterbi_acs"):
+        require(new_launches.get(k, 0) > 0,
+                f"phases 13-14: kernel {k} never launched")
+
     # ---- phase 12: device times under torch.profiler, after every timed run
     profile_kernels(dev, checks, max(int((rec_thr.decoder ==
                                           DECODER_VITERBI).sum()), 1))
@@ -2170,6 +2501,7 @@ def main() -> int:
             "replaces": meta[name][1],
             **({"design": designs[name]} if name in designs else {}),
             "launches": launches[name],
+            "stream_cli_launches": new_launches.get(name, 0),
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

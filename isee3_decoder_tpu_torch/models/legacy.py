@@ -12,12 +12,12 @@ port of isee3_decoder_tpu/models/legacy.py.
                          Viterbi with known boundary states (icesync.c)
 * ``ebn0_from_symbol_errors`` — inverse-erfc Eb/N0 estimate
                          (icesync.c:393-402,414-443)
+* ``bitsync_frames``   — whole-file symbol sync + streaming Viterbi +
+                         syncword framing (bitsync.c)
 
-``bitsync_frames`` (bitsync.c) is not ported yet: it needs the symbol
-tracker.  Functions that compute on tensors take ``device=None``: the
-card unless the caller asks for "cpu" (a CUDA tensor runs where it lies);
-the FFT sync search and the templates are host numpy, as in the JAX
-package.
+Functions that compute on tensors take ``device=None``: the card unless
+the caller asks for "cpu" (a CUDA tensor runs where it lies); the FFT
+sync search and the templates are host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from isee3_decoder_tpu_torch.config import (
     CodeSpec,
     sync_vector,
 )
+from isee3_decoder_tpu_torch.ops import symbols as sym_ops
 from isee3_decoder_tpu_torch.ops import viterbi
 from isee3_decoder_tpu_torch.ops import viterbi_inplace as vip
 from isee3_decoder_tpu_torch.ops.encode import bits_to_bytes, encode_bits
@@ -324,6 +325,57 @@ def icesync_frames(samples: np.ndarray, samprate: float = 250_000.0,
         ))
         startsync = endsync
     return out
+
+
+class BitsyncResult(NamedTuple):
+    frames: list[np.ndarray]  # decoded 128-byte frames
+    bits: np.ndarray  # the decoded bit stream
+    infos: list[dict]  # per frame window: firstsample, energy, symrate
+
+
+def bitsync_frames(samples: np.ndarray, samprate: float = 250_000.0,
+                   symrate: float = 1024.467, decode_delay: int = 200,
+                   code: CodeSpec = DEFAULT_CODE, device=None) -> BitsyncResult:
+    """Whole-file symbol sync + streaming Viterbi + syncword framing, the
+    capability of ``bitsync.c``: per frame a symbol-phase search over
+    ±half a symbol (bitsync.c:133-186) and the integrate-and-dump at the
+    best phase, gain 75/sqrt(energy) (bitsync.c:228); then pair phasing
+    by the sync correlators (bitsync.c:208-226), the fixed-delay
+    streaming Viterbi (``vdecode_stream``: kernel K10 on the card) and
+    40-bit syncword framing (bitsync.c:256-270).
+
+    The JAX package sums the whole file again for every frame; here one
+    prefix sum of the file (kernel K3) serves every frame — the same
+    values, since each frame's reads lie inside the file."""
+    samples = np.asarray(samples, np.int16)
+    symbolsamples = samprate / symrate
+    halfclock = 0.5 * symbolsamples
+    framesym = FRAMESYMBOLS
+    noff = 2 * int(symbolsamples / 2) + 1
+    firstsample = int(symbolsamples / 2)
+    csum = sym_ops.samples_csum(_rows(samples, device), sym_ops.SEARCH_PAD)
+    infos = []
+    soft_all = []
+    while firstsample + (framesym + 1) * symbolsamples < len(samples):
+        ts = sym_ops.timesearch_from_csum(csum, firstsample, halfclock,
+                                          framesym, 1, noff)
+        firstsample += int(ts.symphase[0])
+        integ = sym_ops.integrate_from_csum(csum, firstsample, halfclock,
+                                            framesym, 1)[0].cpu().numpy()
+        energy = float((integ.astype(np.float64) ** 2).mean())
+        gain = 75.0 / np.sqrt(energy)  # bitsync.c:228 "Hack"
+        soft_all.append(np.clip(gain * integ + 128, 0, 255).astype(np.uint8))
+        infos.append(dict(firstsample=firstsample, energy=energy,
+                          symrate=symrate))
+        firstsample = int(firstsample + framesym * symbolsamples)
+    if not soft_all:
+        return BitsyncResult(frames=[], bits=np.zeros(0, np.uint8), infos=[])
+    dev = csum.device
+    stream = np.concatenate(soft_all)
+    aligned, _ = auto_phase_flip(stream[None, :], code, device=dev)
+    dec = vdecode_stream(aligned, decode_delay, code, device=dev)
+    framed = frame_bits(dec.bits, device=dev)
+    return BitsyncResult(frames=framed.frames, bits=dec.bits[0], infos=infos)
 
 
 def inverse_erf(z: float, terms: int = 100) -> float:

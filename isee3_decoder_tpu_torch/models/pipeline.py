@@ -26,6 +26,16 @@ wide capture → ops/channelizer_cuda.channelize_raw_fused (kernel K7a) →
 per-channel raw int16 → the same chain.  ``receive_blocks_pipelined``
 drives ``receive_block`` over a stream of blocks with the result fetches
 overlapped.
+
+``receive_stream`` is the streaming form, the reference's three
+while(1) processes (pmdemod.c:204, symdemod.c:96, decode.c:149): one
+chunk of a long recording a call, with the state those processes keep in
+memory carried in a ``ChainCarry`` (pm lock, IQ remainder, baseband
+window, symbol timing, soft symbols, decode lock), which
+utils/checkpoint saves and restores.  Per chunk: ops/carrier.
+pm_demod_scan (K1, K2) on whole pm blocks, models/symdemod.symdemod_scan
+(prefix sum by K3), models/decode.decode_stream (K4; K5/K6 for the
+Viterbi fallback).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import FRAMESYMBOLS
 from isee3_decoder_tpu_torch.models.decode import (
     DecodeConfig,
+    DecodeStreamState,
     FrameRecord,
     _finish,
     decode_block_device,
@@ -48,10 +59,12 @@ from isee3_decoder_tpu_torch.models.decode import (
 )
 from isee3_decoder_tpu_torch.models.symdemod import (
     initial_firstsample,
+    symdemod_scan,
     symdemod_scan_csum,
     window_samples,
 )
 from isee3_decoder_tpu_torch.ops.carrier import (
+    PMCarry,
     PMConfig,
     _scan_fused_capable,
     init_carry,
@@ -159,6 +172,18 @@ def receive_block_device_soft(
     return decode_block_device(soft, nframes, npos, cfg.decode), soft
 
 
+def receive_block_device(
+    iq: torch.Tensor,
+    nframes: int,
+    npos: int,
+    cfg: PipelineConfig = PipelineConfig(),
+) -> torch.Tensor:
+    """The device part of the chain, buffer only: IQ → the packed decode
+    buffer (models/decode.decode_block_device layout) on the IQ's
+    device."""
+    return receive_block_device_soft(iq, nframes, npos, cfg)[0]
+
+
 def _finish_block(
     buf_dev: torch.Tensor, soft_dev: torch.Tensor, B: int, nframes: int,
     cfg: PipelineConfig,
@@ -185,6 +210,167 @@ def receive_block(
         npos = FRAMESYMBOLS
     buf_dev, soft_dev = receive_block_device_soft(iq, nframes, npos, cfg)
     return _finish_block(buf_dev, soft_dev, iq.shape[0], nframes, cfg)
+
+
+class ChainCarry(NamedTuple):
+    """The streaming chain's state between calls: what the reference's
+    three while(1) loops keep in process memory (pmdemod.c:204,
+    symdemod.c:96, decode.c:149).  Tensors lie on the run device;
+    utils/checkpoint saves and restores the whole carry."""
+
+    pm: PMCarry  # carrier estimate and lock
+    iq_rem: torch.Tensor  # (B, r) IQ values short of a whole pm block
+    bb: torch.Tensor  # (B, l) int16 baseband not yet consumed, contiguous
+    bb_base: int  # absolute sample index of bb[:, 0] (kept even)
+    bb_total: int  # baseband samples produced so far
+    first: torch.Tensor  # (B,) int64 absolute symbol-timing position
+    windows_done: int  # symdemod windows emitted so far
+    soft: torch.Tensor  # (B, s) uint8 soft symbols not yet consumed
+    soft_base: int  # absolute symbol index of soft[:, 0]
+    dec: DecodeStreamState  # decode lock and positions (host)
+
+
+def init_chain_carry(batch: int, cfg: PipelineConfig = PipelineConfig(),
+                     device=None) -> ChainCarry:
+    """A fresh carry for ``batch`` channels on the run device (the card
+    unless ``device`` names another)."""
+    dev = _kernels.run_device(device)
+    return ChainCarry(
+        pm=init_carry(batch, cfg.pm, device=dev),
+        iq_rem=torch.zeros((batch, 0), dtype=torch.int16, device=dev),
+        bb=torch.zeros((batch, 0), dtype=torch.int16, device=dev),
+        bb_base=0,
+        bb_total=0,
+        first=torch.full((batch,), initial_firstsample(cfg.sym),
+                         dtype=torch.int64, device=dev),
+        windows_done=0,
+        soft=torch.zeros((batch, 0), dtype=torch.uint8, device=dev),
+        soft_base=0,
+        dec=DecodeStreamState(batch),
+    )
+
+
+def chain_carry_template(manifest: dict, cfg: PipelineConfig = PipelineConfig(),
+                         device=None) -> ChainCarry:
+    """A fresh carry of the checkpointed one's shapes, to restore it onto
+    (utils/checkpoint.restore_pytree): ``manifest`` is the checkpoint's
+    (utils/checkpoint.load_manifest).  The buffers whose length varies
+    from chunk to chunk (iq_rem, bb, soft) take their saved lengths, and
+    iq_rem its saved type (int16 or complex64); restore_pytree checks
+    every other leaf against init_chain_carry's."""
+    saved = {m["path"]: m for m in manifest["leaves"]}
+    if not {".first", ".iq_rem", ".bb", ".soft"} <= saved.keys():
+        raise ValueError("the checkpoint holds no ChainCarry")
+    carry = init_chain_carry(saved[".first"]["shape"][0], cfg, device)
+
+    def buffer(name: str, dtype: torch.dtype) -> torch.Tensor:
+        return torch.zeros(saved[name]["shape"], dtype=dtype,
+                           device=carry.bb.device)
+
+    return carry._replace(
+        iq_rem=buffer(".iq_rem", getattr(torch, saved[".iq_rem"]["dtype"])),
+        bb=buffer(".bb", torch.int16),
+        soft=buffer(".soft", torch.uint8),
+    )
+
+
+def receive_stream(
+    iq,
+    cfg: PipelineConfig = PipelineConfig(),
+    carry: ChainCarry | None = None,
+    trim: bool = True,
+    device=None,
+) -> tuple[list[FrameRecord], ChainCarry]:
+    """Process one chunk of a long recording, carrying the chain's state:
+    consecutive calls on consecutive chunks give the soft symbols and
+    frames of one call on the whole recording, with no re-acquisition at
+    chunk boundaries.  ``iq`` is (B, 2r) int16 interleaved I,Q or (B, r)
+    complex; frame ``start_symbol`` values are absolute symbol indices of
+    the stream.  ``trim=False`` keeps every soft symbol in the carry.
+
+    Runs on the carry's device (a new carry: the card unless ``device``
+    names another)."""
+    if carry is None:
+        iq = _kernels.place(iq, device)
+        carry = init_chain_carry(1 if iq.ndim == 1 else iq.shape[0], cfg,
+                                 device=iq.device)
+    iq = _kernels.place(iq, carry.bb.device)
+    if iq.ndim == 1:
+        iq = iq[None, :]
+    B = iq.shape[0]
+    n = cfg.pm.fftsize
+    blockvals = n if iq.is_complex() else 2 * n  # values per pm block
+
+    # ---- pmdemod: whole pm blocks; the remainder carries over
+    stream = torch.cat([carry.iq_rem.to(iq.dtype), iq], dim=1)
+    nblocks = stream.shape[1] // blockvals
+    iq_rem = stream[:, nblocks * blockvals:].contiguous()
+    pm_carry, bb, bb_total = carry.pm, carry.bb, carry.bb_total
+    if nblocks:
+        blocks = stream[:, : nblocks * blockvals].reshape(B, nblocks, blockvals)
+        pm_carry, pm_out = pm_demod_scan(pm_carry, blocks, cfg.pm)
+        new_bb = pm_out.baseband.transpose(0, 1).reshape(B, nblocks * n)
+        bb = torch.cat([bb, new_bb], dim=1)
+        bb_total += nblocks * n
+
+    # ---- symdemod: the one-shot window count (demod_to_symbols) applied
+    # to the stream so far
+    wlen = window_samples(cfg.sym)
+    first0 = initial_firstsample(cfg.sym)
+    target = max((bb_total - first0) // wlen - 1, 0)
+    nwin = target - carry.windows_done
+    first, soft, bb_base = carry.first, carry.soft, carry.bb_base
+    if nwin > 0:
+        first_rel = first - bb_base
+        if int(first_rel.min()) < 0:
+            raise RuntimeError("receive_stream: symbol timing before the "
+                               "carried baseband")
+        _, sym_out = symdemod_scan(bb, cfg.sym, nwin, first_rel)
+        soft = torch.cat([soft, sym_out.soft.transpose(0, 1).reshape(B, -1)],
+                         dim=1)
+        # advance the timing past the last window with the C truncation
+        # walk of the double sum (symdemod.c:192)
+        last_first = sym_out.firstsample[-1] + bb_base
+        first = torch.trunc(
+            last_first.to(torch.float64)
+            + cfg.sym.nsymbols * cfg.sym.symbolsamples).to(torch.int64)
+        # purge consumed baseband (symdemod.c:101-112 slide, with the
+        # reference's 2-symbol lookback slop)
+        keep_from = int(first.min()) - 2 * int(cfg.sym.symbolsamples) - 8
+        slide = max(min(keep_from - bb_base, bb.shape[1]), 0)
+        # round-half-to-even (nearbyint, symdemod.c:217) is invariant only
+        # under EVEN shifts: keep bb_base even so edges relative to the
+        # buffer round as the absolute ones do
+        slide &= ~1
+        bb = bb[:, slide:].contiguous()  # K3 takes contiguous rows
+        bb_base += slide
+
+    # ---- decode: the stream walk with the carried lock and position
+    dec = carry.dec
+    records, dec = decode_stream(soft, cfg.decode, dec, device=soft.device)
+    records = [r._replace(start_symbol=r.start_symbol + carry.soft_base)
+               for r in records]
+    soft_base = carry.soft_base
+    if trim:
+        cut = int(dec.pos.min())
+        if cut > 0:
+            soft = soft[:, cut:].contiguous()
+            dec.pos = dec.pos - cut
+            soft_base += cut
+
+    out = ChainCarry(
+        pm=pm_carry,
+        iq_rem=iq_rem,
+        bb=bb,
+        bb_base=bb_base,
+        bb_total=bb_total,
+        first=first,
+        windows_done=target if nwin > 0 else carry.windows_done,
+        soft=soft,
+        soft_base=soft_base,
+        dec=dec,
+    )
+    return records, out
 
 
 def run_pipeline(iq, cfg: PipelineConfig = PipelineConfig(),

@@ -41,13 +41,10 @@ def symdemod_scan(
     firstsample0: torch.Tensor | int | None = None,
 ) -> tuple[torch.Tensor, SymWindowOut]:
     """Demodulate ``nwindows`` windows from (B, L) baseband samples →
-    (final firstsample, outputs stacked over the window axis)."""
-    if samples.ndim == 1:
-        samples = samples[None, :]
-    span = sym_ops.timesearch_csum_span(
-        cfg.halfclock, cfg.nsymbols, cfg.symbolclocks, cfg.noffsets
-    )
-    csum = sym_ops.prefix_sum(samples, pad_to=samples.shape[1] + span + 8)
+    (final firstsample, outputs stacked over the window axis).  The
+    prefix sum of int16 samples comes from kernel K3
+    (ops/symbols.samples_csum), padded by the JAX package's rule."""
+    csum = sym_ops.samples_csum(samples, sym_ops.SEARCH_PAD)
     return symdemod_scan_csum(csum, cfg, nwindows, firstsample0)
 
 

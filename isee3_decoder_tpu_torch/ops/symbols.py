@@ -18,6 +18,11 @@ so energies and decisions are identical.
 Reads past the end of the prefix sum are clamped to its last column,
 which holds the grand total (prefix_cuda.prefix_sum_blocks(tail=1) /
 prefix_sum here): an edge extension, equal to zero-padding the samples.
+
+``samples_csum`` takes the prefix sum of int16 baseband from kernel K3
+(the samples as one block of prefix_cuda.prefix_sum_blocks);
+``timesearch`` and ``integrate_symbols``, the per-window forms the
+symdemod and bitsync tools call, read it.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from isee3_decoder_tpu_torch.config import ACTUALCLOCK
+from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 from isee3_decoder_tpu_torch.ops.syncword import argmax_first
 
 
@@ -62,6 +68,13 @@ class SymConfig:
         return int(s / 2) + math.ceil(s / 2)
 
 
+#: samples of zero padding the timing search's prefix sum gets past the
+#: block: the JAX package's rule (its symbols.py:620-624), the span its
+#: grouped plans read beyond the last edge plus 8 — here 8, since the
+#: gather form reads no further than the last edge
+SEARCH_PAD = 8
+
+
 class TimeSearchResult(NamedTuple):
     symphase: torch.Tensor  # (B,) int64 best timing offset in samples
     maxenergy: torch.Tensor  # (B,) float64 mean energy per symbol there
@@ -81,6 +94,19 @@ def prefix_sum(samples: torch.Tensor, pad_to: int | None = None) -> torch.Tensor
     zero = torch.zeros((B, 1), dtype=torch.int64, device=samples.device)
     # int64 → int32 keeps the low 32 bits: two's-complement wraparound
     return torch.cat([zero, csum], dim=-1).to(torch.int32)
+
+
+def samples_csum(samples: torch.Tensor, pad: int = 0) -> torch.Tensor:
+    """(B, L) int16 baseband → (B, L + pad + 1) int32 exclusive prefix sum
+    whose columns from L on hold the total: ``prefix_sum(samples, pad_to=L
+    + pad)``, from kernel K3 on the samples as one block of L samples with
+    pad + 1 tail columns (its plain version on a CPU tensor)."""
+    if samples.ndim == 1:
+        samples = samples[None, :]
+    if samples.dtype != torch.int16 or samples.shape[1] == 0:
+        raise ValueError(f"samples must be (B, L) int16 with L > 0, got "
+                         f"{samples.dtype} {tuple(samples.shape)}")
+    return prefix_sum_blocks(samples.contiguous()[None], tail=pad + 1)
 
 
 def trial_edges(halfclock: float, nsymbols: int, symbolclocks: int) -> np.ndarray:
@@ -132,15 +158,6 @@ def integrate_from_csum(
     return (seg[..., 1] - seg[..., 0]).sum(dim=-1, dtype=torch.int32)
 
 
-def timesearch_csum_span(
-    halfclock: float, nsymbols: int, symbolclocks: int, noffsets: int
-) -> int:
-    """Prefix-sum entries the timing search reads past
-    (firstsample - noffsets//2)."""
-    rel = search_edges(halfclock, nsymbols, symbolclocks)
-    return int(rel[-1]) + noffsets
-
-
 def timesearch_from_csum(
     csum: torch.Tensor,
     firstsample: torch.Tensor | int,
@@ -186,3 +203,46 @@ def finish_demod(
         gain = gain[:, None]
     soft = torch.clamp(gain * x + 128.0, 0.0, 255.0).to(torch.uint8)  # C cast
     return soft, energy
+
+
+class DemodResult(NamedTuple):
+    soft: torch.Tensor  # (B, nsymbols) uint8 offset-128 soft decisions
+    integrators: torch.Tensor  # (B, nsymbols) int32 raw integrator values
+    energy: torch.Tensor  # (B,) float64 mean energy per symbol
+
+
+def integrate_symbols(
+    samples: torch.Tensor,
+    firstsample: torch.Tensor | int,
+    halfclock: float,
+    nsymbols: int,
+    symbolclocks: int,
+    gain: torch.Tensor | float = 0.0,
+) -> DemodResult:
+    """Manchester integrate-and-dump at one timing hypothesis
+    (trial_demod, symdemod.c:202-256) on (B, L) baseband: segment edges
+    nearbyint(firstsample + m·halfclock), the reference's absolute
+    rounding.  ``gain`` scales the 8-bit output; 0 is an energy-only
+    trial."""
+    csum = samples_csum(samples)
+    integ = integrate_from_csum(csum, firstsample, halfclock, nsymbols,
+                                symbolclocks)
+    soft, energy = finish_demod(integ, gain)
+    return DemodResult(soft=soft, integrators=integ, energy=energy)
+
+
+def timesearch(
+    samples: torch.Tensor,
+    firstsample: torch.Tensor | int,
+    halfclock: float,
+    nsymbols: int,
+    symbolclocks: int,
+    noffsets: int,
+) -> TimeSearchResult:
+    """Full symbol-phase search over ±half a symbol (timesearch,
+    symdemod.c:260-335) on (B, L) baseband: edges firstsample + offset +
+    nearbyint(m·halfclock), the reference's relative rounding; a strict
+    '>' keeps the earliest maximal offset."""
+    csum = samples_csum(samples, SEARCH_PAD)
+    return timesearch_from_csum(csum, firstsample, halfclock, nsymbols,
+                                symbolclocks, noffsets)

@@ -1124,3 +1124,93 @@ def test_k8_k9_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="out of range 3"):
         carrier_cuda.windowed_search_raw(packed[:, 0], first1, first1, 2,
                                          32768.0, 4.0)
+
+
+def _stream_block(dev, B: int, seconds: float, noise: float, seed: int):
+    """(B, 2n) int16 raw IQ of the bench configuration (250 ksps, 1024
+    sym/s, carriers 20 kHz + 137 Hz·i) made on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    frames = random_frames(np.random.default_rng(seed), 3)
+    frames = torch.as_tensor(np.ascontiguousarray(
+        np.broadcast_to(frames, (B, *frames.shape))), device=dev)
+    carriers = torch.as_tensor(20_000.0 + 137.0 * np.arange(B),
+                               dtype=torch.float32, device=dev)
+    iq = synthesize_iq_device(frames, carriers, gen, int(seconds * 250_000),
+                              noise_std=noise)
+    return to_raw_int16(iq)
+
+
+def _stream_cfg():
+    from isee3_decoder_tpu_torch.models.pipeline import PipelineConfig
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+
+    return PipelineConfig(
+        pm=carrier.PMConfig(samprate=250_000.0, binsize=4.0,
+                            search_width=200.0),
+        sym=SymConfig(samprate=250_000.0, symrate=1024.0))
+
+
+def _flat(records):
+    return [(int(r.start_symbol[b]), bool(r.good[b]), int(r.decoder[b]),
+             bytes(r.data[b])) for r in records for b in range(r.data.shape[0])]
+
+
+def test_receive_stream_chunked_equals_one_call(dev):
+    """receive_stream on the card in ragged chunks (one shorter than a pm
+    block) gives one call's frames, and with trim=False the soft symbols
+    of demod_to_symbols bit for bit; K1, K2 and K3 run."""
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        demod_to_symbols,
+        receive_stream,
+    )
+
+    cfg = _stream_cfg()
+    iq = _stream_block(dev, 8, 6.5, 2500.0, seed=41)
+    one, _ = receive_stream(iq, cfg)
+    soft1 = demod_to_symbols(iq, cfg)[0]
+    cuts = [0, 500_000, 506_000, 1_500_000, iq.shape[1]]
+    _kernels.reset_launches()
+    carry, recs = None, []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        r, carry = receive_stream(iq[:, lo:hi], cfg, carry, trim=False)
+        recs.extend(r)
+    assert _flat(recs) == _flat(one) and any(f[1] for f in _flat(one))
+    for k in ("pm_locked", "spin_down", "prefix_sum"):
+        assert _kernels.LAUNCHES[k] > 0, k
+    assert carry.bb.is_cuda and carry.soft.is_cuda and carry.first.is_cuda
+    n = min(carry.soft.shape[1], soft1.shape[1])
+    assert n >= soft1.shape[1] - cfg.sym.nsymbols
+    assert torch.equal(carry.soft[:, :n], soft1[:, :n])
+
+
+def test_receive_stream_checkpoint_resume_on_the_card(dev, tmp_path):
+    """Stopped after two chunks, saved, restored onto a fresh template on
+    the card and resumed: the uninterrupted stream's frames."""
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        chain_carry_template,
+        receive_stream,
+    )
+    from isee3_decoder_tpu_torch.utils import checkpoint
+
+    cfg = _stream_cfg()
+    iq = _stream_block(dev, 4, 6.5, 2500.0, seed=42)
+    cuts = [0, 500_000, 506_000, 1_500_000, iq.shape[1]]
+    chunks = list(zip(cuts[:-1], cuts[1:]))
+    carry, want = None, []
+    for lo, hi in chunks:
+        r, carry = receive_stream(iq[:, lo:hi], cfg, carry)
+        want.extend(r)
+    carry, got = None, []
+    for lo, hi in chunks[:2]:
+        r, carry = receive_stream(iq[:, lo:hi], cfg, carry)
+        got.extend(r)
+    path = tmp_path / "carry.npz"
+    checkpoint.save_pytree(path, carry)
+    restored = checkpoint.restore_pytree(path, chain_carry_template(
+        checkpoint.load_manifest(path), cfg, device=dev))
+    assert restored.bb.is_cuda and torch.equal(restored.bb, carry.bb)
+    for lo, hi in chunks[2:]:
+        r, restored = receive_stream(iq[:, lo:hi], cfg, restored)
+        got.extend(r)
+    assert _flat(got) == _flat(want) and len(_flat(want)) >= 4

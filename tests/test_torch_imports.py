@@ -61,7 +61,9 @@ def test_every_port_module_is_checked():
                  "ops/viterbi.py", "ops/viterbi_acs_cuda.py",
                  "models/legacy.py", "utils/sim.py", "cli/vdecode.py",
                  "cli/vtest.py", "cli/hybridtest.py", "cli/icesync.py",
-                 "cli/qdecode.py", "cli/framer.py"):
+                 "cli/qdecode.py", "cli/framer.py", "utils/checkpoint.py",
+                 "cli/pmdemod.py", "cli/symdemod.py", "cli/bitsync.py",
+                 "models/symdemod.py", "ops/symbols.py"):
         assert want in names
 
 

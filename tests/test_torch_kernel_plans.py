@@ -1291,6 +1291,27 @@ def _spin_mirror_case(n, flip, doppler):
     return raw, f, dop, (bb_m, a_m, c_m), plain
 
 
+@pytest.fixture
+def jax_compiled_here():
+    """The JAX kernel's interpret-mode arithmetic is the float32 code XLA
+    generates for the machine: its vector ISA changes the bits (under
+    ``--xla_cpu_max_isa=AVX``, no FMA, the baseband and amplitude of the
+    n = 8192 case differ from AVX2's and AVX-512's), and tests/conftest.py
+    turns on a persistent compilation cache that hands a process programs
+    other processes compiled, on whatever machine wrote them (the XLA:CPU
+    AOT loader warns of mismatched machine features).  So the JAX side
+    of a comparison compiles in the test's own process: the persistent
+    cache off and the in-memory executables dropped for the test, the
+    cache setting restored after."""
+    import jax
+
+    prev = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    jax.clear_caches()
+    yield
+    jax.config.update("jax_enable_compilation_cache", prev)
+
+
 def _assert_spin_close(got, want):
     (bb_m, a_m, c_m), (bb, amp, cn0) = got, want
     torch.testing.assert_close(a_m, amp, rtol=1e-5, atol=0)
@@ -1303,7 +1324,8 @@ def _assert_spin_close(got, want):
     (16384, False, 0.0), (16384, True, 40.0),     # a cluster of 2
     (32768, True, 0.0), (32768, False, 40.0),     # a cluster of 4
 ])
-def test_spin_cluster_arithmetic_matches_plain_and_jax(n, flip, doppler):
+def test_spin_cluster_arithmetic_matches_plain_and_jax(n, flip, doppler,
+                                                       jax_compiled_here):
     """The torch mirror of the "cluster" design (its group phase, its
     summation order: float per thread, double over warps and ranks)
     against spin_down_plain and the JAX package's spin_down_fused
@@ -1340,7 +1362,8 @@ def test_spin_cluster_arithmetic_matches_plain_on_a_falling_chirp(n, flip):
 
 @pytest.mark.parametrize("n,doppler,lsb", [(8192, -30.0, 2), (32768, -30.0, 2),
                                            (8192, 40.0, 1), (32768, 40.0, 1)])
-def test_spin_down_plain_against_jax_on_chirps(n, doppler, lsb):
+def test_spin_down_plain_against_jax_on_chirps(n, doppler, lsb,
+                                               jax_compiled_here):
     """Pins the falling-chirp gap of ROADMAP §3: the port's spin_down_plain
     and the JAX package's spin_down_fused (interpret mode) on the same
     chirped carriers, baseband within 2 LSB at -30 Hz/s (the float32 Bk
@@ -1367,6 +1390,75 @@ def test_spin_down_plain_against_jax_on_chirps(n, doppler, lsb):
                                atol=1e-2, rtol=0)
     gap = int((bb.int() - torch.from_numpy(np.array(bb_j)).int()).abs().max())
     assert gap <= lsb
+
+
+def _spin_kernel_eager(raw, f, samprate, dop):
+    """The JAX package's ``_spin_kernel`` body (carrier_pallas.py:214-300)
+    replayed op by op in eager jnp over whole rows: the same expressions,
+    its own ``_chirp_cycles`` chunk constants, each op rounded to float32
+    on its own → the int16 baseband."""
+    import jax.numpy as jnp
+
+    from isee3_decoder_tpu.ops import carrier_pallas as jp
+
+    packed = jp.pack_raw(jnp.asarray(raw))
+    B, n = packed.shape
+    ch = jp._CH
+    c = (jnp.asarray(f) / np.float32(samprate)).astype(jnp.float32)[:, None]
+    c256 = jnp.mod(c * 256.0, 1.0)
+    j = jnp.broadcast_to(jnp.arange(ch, dtype=jnp.int32)[None], (B, ch))
+    jf = j.astype(jnp.float32)
+    jh = (j // 256).astype(jnp.float32)
+    jl = (j % 256).astype(jnp.float32)
+    spun, acc = [], [jnp.zeros((B, ch), jnp.float32)] * 5
+    for k in range(n // ch):
+        x = packed[:, k * ch:(k + 1) * ch]
+        i_ = jnp.right_shift(jnp.left_shift(x, 16), 16).astype(jnp.float32)
+        q_ = jnp.right_shift(x, 16).astype(jnp.float32)
+        idx = j + k * ch
+        cyc = (c256 * (idx // 256).astype(jnp.float32)
+               + c * (idx % 256).astype(jnp.float32))
+        A, Bk, B256, C = jp._chirp_cycles(k, ch, dop)
+        cyc = cyc + (np.float32(A) + np.float32(B256) * jh
+                     + np.float32(Bk) * jl + np.float32(C) * (jf * jf))
+        ang = (2 * np.pi) * cyc
+        lor, loi = jnp.cos(ang), -jnp.sin(ang)
+        sr, si = i_ * lor - q_ * loi, i_ * loi + q_ * lor
+        spun.append((sr, si))
+        acc = [acc[0] + sr, acc[1] + si, acc[2] + sr * sr, acc[3] + si * si,
+               acc[4] + sr * si]
+    inv = np.float32(1.0 / n)
+    m_r, m_i = (a.sum(axis=1, keepdims=True) * inv for a in acc[:2])
+    amp = jnp.sqrt(m_r * m_r + m_i * m_i)
+    safe_amp = jnp.where(amp > 0, amp, 1.0)
+    ur = jnp.where(amp > 0, m_r / safe_amp, 1.0)
+    ui = jnp.where(amp > 0, -m_i / safe_amp, 0.0)
+    scale = np.float32(np.sqrt(0.5))
+    return np.concatenate([np.asarray(jnp.trunc((sr * ui + si * ur) * scale)
+                                      .astype(jnp.int16)) for sr, si in spun],
+                          axis=1)
+
+
+@pytest.mark.parametrize("n", [8192, 32768])
+@pytest.mark.parametrize("doppler", [-30.0, 40.0])
+def test_spin_down_plain_against_the_jax_kernels_expressions(n, doppler):
+    """spin_down_plain within 1 LSB of the JAX kernel's own expressions
+    evaluated op by op (``_spin_kernel_eager``), on rising and falling
+    chirps.  The 2-LSB gap pinned above lies in how the JAX kernel's
+    interpret mode evaluates them: it runs the body as one XLA program,
+    which folds the first chunk's A = 0 and float32(Bk) = 1.0 (a falling
+    rate's Bk just below 1) and contracts B256·(j//256) + (j%256) and
+    C·j² + t into fused multiply-adds, one rounding where the expressions
+    round twice: 1 ulp of the float32 phase (3e-5 cycles at ~290) on
+    4096 of the chunk's 8192 samples, 2 LSB of baseband."""
+    samprate = 32768.0
+    dop = doppler / samprate**2
+    raw, f = _spin_signal(8, n, samprate, n + 3, False, dop)
+    bb, _, _ = carrier_cuda.spin_down_plain(
+        carrier.pack_raw(torch.from_numpy(raw)), torch.from_numpy(f),
+        samprate, False, dop)
+    want = _spin_kernel_eager(raw, f, samprate, dop)
+    assert int(np.abs(bb.numpy().astype(np.int32) - want).max()) <= 1
 
 
 # ---------------------------------------------------------------- K7 plan
