@@ -28,9 +28,14 @@ backends, ``icesync_frames`` on Manchester baseband, and the ``vtest``
 CLI in a subprocess.  Then the streaming chain (phase 13:
 ``receive_stream`` on the clean and mid recordings in ragged chunks
 against one call, its soft symbols bit for bit, a checkpointed resume,
-and a 16-channel threshold stream through K5/K6) and the reference's
+and a 16-channel threshold stream through K5/K6), the reference's
 stage tools as processes on the card (phase 14: ``pmdemod | symdemod |
-decode`` over pipes, ``bitsync``).  Last, after every timed block, the
+decode`` over pipes, ``bitsync``, ``symdemod -t`` on a recording sent at
+the measured clock, ``fanotest``) and clock tracking at 128 channels
+(phase 15: half the channels sent at 1024.0 sym/s, half at 1024.545,
+demodulated at 1024.0 untracked and through ``symdemod_tracked_batched``,
+both decoded; the tracked soft symbols against the kernels' plain
+versions and batching invariance).  Last, after every timed block, the
 device time of kernels K1 (its search launch and spin-down apart), K2,
 K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
 checked on both designs ("cluster", one thread-block cluster per
@@ -43,7 +48,8 @@ error, or when any check fails.  Imports no JAX.
 
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
-path (and of phases 13-14 alone, ``stream_cli_launches``), its error
+path (and of phases 13-14 alone, ``stream_cli_launches``, and of phase
+15, ``tracking_launches``), its error
 against the plain version, its time, the plain
 version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
@@ -75,18 +81,21 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "isee3_decoder_tpu_torch"
 # runs ``{pkg}.cli.{tool}`` as ``python -c TOOL_SHIM <counts.json> args``
-# and writes the process's kernel launch counts and the backend of each
-# stage to counts.json when the tool exits
+# and writes the process's kernel launch counts, the backend of each
+# stage and the clock trackers' probes and reads per window
+# (models/symdemod.track_stats) to counts.json when the tool exits
 TOOL_SHIM = """import json, sys
 from {pkg} import _kernels
 from {pkg}.cli import _io, {tool} as tool
+from {pkg}.models import symdemod
 out = sys.argv.pop(1)
 try:
     _io.run_main(tool.main)
 finally:
     with open(out, "w") as f:
         json.dump({{"launches": _kernels.LAUNCHES,
-                   "backend": _kernels.backend_used}}, f)
+                   "backend": _kernels.backend_used,
+                   "track": symdemod.track_stats}}, f)
 """
 
 # bench configuration (the JAX package's bench.py)
@@ -97,6 +106,9 @@ NFRAMES_TX = 4
 NOISE_CLEAN = 2500.0
 NOISE_MID = 50000.0
 NOISE_THRESHOLD = 110000.0
+# clock tracking (phases 14, 15): channels sent at the nominal clock and at
+# the measured spacecraft clock (ACTUALCLOCK), demodulated from 1024.0
+TRACK_SYMRATES = (1024.0, 1024.545)
 
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet; the
 # card's own power limit is printed beside the results).
@@ -2164,12 +2176,15 @@ def phase_cli(dev) -> dict:
     """Phase 14: the reference's stage tools as port processes on the
     card: a one-channel 10 s recording made on the card written to a file,
     ``pmdemod -W 100 | symdemod -c 1024. | decode`` over pipes (the
-    baseband teed to a file), then ``bitsync -c 1024`` on that baseband.
-    Every good frame decode prints must be a sent one, and decode and
-    bitsync must each match one at least; bitsync's frames must equal
-    bitsync_frames' on the same baseband through the kernels' plain
-    versions.  Each tool runs under a shim (TOOL_SHIM) that writes its
-    kernel launch counts and backends on exit; returns their sum."""
+    baseband teed to a file), then ``bitsync -c 1024`` on that baseband;
+    a second recording sent at the measured clock, 1024.545 Hz, through
+    ``pmdemod -W 100 | symdemod -t -c 1024. | decode`` (clock tracking);
+    and ``fanotest -l 1024 -n 256 -e 3`` (kernel K4).  Every good frame
+    decode prints must be a sent one, and decode and bitsync must each
+    match one at least; bitsync's frames must equal bitsync_frames' on the
+    same baseband through the kernels' plain versions.  Each tool runs
+    under a shim (TOOL_SHIM) that writes its kernel launch counts,
+    backends and tracking counts on exit; returns the launches' sum."""
     import shlex
     import tempfile
 
@@ -2186,24 +2201,31 @@ def phase_cli(dev) -> dict:
 
     t0 = time.perf_counter()
     frames = random_frames(np.random.default_rng(31), 5)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(31)
     nsamples = int(10.0 * SAMPRATE)
-    iq = synthesize_iq_device(
-        torch.as_tensor(frames[None], device=dev),
-        torch.tensor([20_000.0], device=dev), gen, nsamples,
-        samprate=SAMPRATE, symrate=SYMRATE, noise_std=NOISE_CLEAN)
-    raw = to_raw_int16(iq)[0].cpu().numpy()
+
+    def recording(symrate: float, seed: int) -> np.ndarray:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        iq = synthesize_iq_device(
+            torch.as_tensor(frames[None], device=dev),
+            torch.tensor([20_000.0], device=dev), gen, nsamples,
+            samprate=SAMPRATE, symrate=symrate, noise_std=NOISE_CLEAN)
+        return to_raw_int16(iq)[0].cpu().numpy()
+
     sent = {f.tobytes() for f in frames}
     total: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         rec, bb = os.path.join(tmp, "input.iq"), os.path.join(tmp, "bb.raw")
-        raw.tofile(rec)
+        rec_t = os.path.join(tmp, "input_1024.545.iq")
+        recording(SYMRATE, 31).tofile(rec)
+        recording(TRACK_SYMRATES[1], 32).tofile(rec_t)
         outs = {t: os.path.join(tmp, f"{t}.json")
-                for t in ("pmdemod", "symdemod", "decode", "bitsync")}
+                for t in ("pmdemod", "symdemod", "decode", "bitsync",
+                          "pmdemod_t", "symdemod_t", "decode_t", "fanotest")}
 
         def tool(name: str, args: str) -> str:
-            shim = shlex.quote(TOOL_SHIM.format(pkg=PKG, tool=name))
+            shim = shlex.quote(TOOL_SHIM.format(pkg=PKG,
+                                                tool=name.split("_")[0]))
             return f"{sys.executable} -c {shim} {outs[name]} {args}"
 
         pipe = (f"set -o pipefail; {tool('pmdemod', f'-q -W 100 {rec}')} "
@@ -2236,29 +2258,225 @@ def phase_cli(dev) -> dict:
         pframes = [bytes(np.asarray(f, np.uint8)) for f in plain.frames]
         require(bframes == pframes, f"bitsync: frames differ from the plain "
                 f"versions' ({len(bframes)} against {len(pframes)})")
-        per_tool = {}
+        # clock tracking: a recording sent at 1024.545 Hz, demodulated
+        # from 1024.0 with -t
+        pipe_t = (f"set -o pipefail; {tool('pmdemod_t', f'-q -W 100 {rec_t}')}"
+                  f" | {tool('symdemod_t', '-t -c 1024.')} "
+                  f"| {tool('decode_t', '')}")
+        t1 = time.perf_counter()
+        rt = subprocess.run(["bash", "-c", pipe_t], cwd=HERE,
+                            capture_output=True, text=True, timeout=300)
+        t_track = time.perf_counter() - t1
+        require(rt.returncode == 0, f"tracked pipeline failed: "
+                f"{rt.stderr[-2000:]}")
+        decoded_t = parse_hex_frames(rt.stdout)
+        good_t = [d for g, d in decoded_t if g]
+        require(all(d in sent for d in good_t), f"tracked pipeline: a good "
+                f"frame was not sent: {rt.stdout[-1500:]}")
+        clocks_t = [ln.split("clock ")[1].split(" Hz")[0]
+                    for ln in rt.stderr.splitlines() if "samp/sym" in ln]
+        t1 = time.perf_counter()
+        rf = subprocess.run(["bash", "-c", tool(
+            "fanotest", "-l 1024 -n 256 -e 3")], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        t_fano = time.perf_counter() - t1
+        require(rf.returncode == 0, f"fanotest failed: {rf.stderr[-2000:]}")
+        fano_line = rf.stdout.strip().splitlines()[-1]
+        require(fano_line.startswith("trials 256 "),
+                f"fanotest: {rf.stdout[-1000:]}")
+        per_tool, track = {}, {}
         for name, path in outs.items():
             with open(path) as f:
                 rec_l = json.load(f)
             per_tool[name] = {k: v for k, v in rec_l["launches"].items() if v}
             for k, v in rec_l["launches"].items():
                 total[k] = total.get(k, 0) + v
-            if name != "decode":
+            if not name.startswith("decode"):
                 require(all(v == "cuda" for k, v in rec_l["backend"].items()
-                            if k in ("pm", "csum", "viterbi")),
+                            if k in ("pm", "csum", "fano", "viterbi")),
                         f"{name}: a stage off the card: {rec_l['backend']}")
+            track[name] = rec_l["track"]
     for name, k in (("pmdemod", "pm_locked"), ("pmdemod", "spin_down"),
                     ("symdemod", "prefix_sum"), ("bitsync", "prefix_sum"),
-                    ("bitsync", "viterbi_acs")):
+                    ("bitsync", "viterbi_acs"), ("symdemod_t", "prefix_sum"),
+                    ("fanotest", "fano_walk")):
         require(per_tool[name].get(k, 0) > 0, f"{name}: kernel {k} never "
                 f"launched")
+    reads = track["symdemod_t"]["host_reads"]
+    require(reads and per_tool["symdemod_t"]["prefix_sum"] == len(reads),
+            "symdemod -t: not one prefix sum (K3) a window")
     log(f"phase 14 CLI: pmdemod -W 100 | symdemod -c 1024. | decode on a 10 s "
         f"recording: {len(decoded)} frames, {len(good)} good, all sent "
         f"({t_pipe:.1f} s); bitsync -c 1024: {len(bframes)} frames, "
         f"{nbmatch} sent, == plain versions ({t_bitsync:.1f} s, plain "
-        f"{t_plain:.1f} s); launches per tool {per_tool} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{t_plain:.1f} s)")
+    log(f"  symdemod -t -c 1024. on a 10 s recording sent at "
+        f"{TRACK_SYMRATES[1]} Hz: {len(decoded_t)} frames, {len(good_t)} "
+        f"good, all sent ({t_track:.1f} s); {len(reads)} windows, probes a "
+        f"window {track['symdemod_t']['iterations']}, host reads a window "
+        f"{reads}; clock estimates {clocks_t} Hz")
+    log(f"  fanotest -l 1024 -n 256 -e 3: {fano_line} ({t_fano:.1f} s, K4 "
+        f"launches {per_tool['fanotest'].get('fano_walk', 0)})")
+    log(f"  launches per tool {per_tool} ({time.perf_counter() - t0:.1f} s)")
     return total
+
+
+def phase_tracking(dev, nsamples: int, pm, sym) -> dict:
+    """Phase 15: clock tracking at 128 channels.  Half the channels of a
+    250 ksps block are sent at 1024.0 sym/s, half at 1024.545 (the
+    measured spacecraft clock); pm_demod_scan (K1, K2) makes the baseband,
+    which is demodulated at ``sym`` (1024.0) twice: untracked
+    (symdemod_scan) and tracked (symdemod_tracked_batched, its prefix sum
+    from K3), and both are decoded (find_sync, decode_frames_batch: K4,
+    K5/K6 for the Viterbi fallback).  Every good frame must be a sent one;
+    the tracked soft symbols must equal the same call's under
+    plain_reference() bit for bit, and 4 channels tracked alone their rows
+    of the 128-channel call.  Returns the counted run's launches."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, SYNCBITS
+    from isee3_decoder_tpu_torch.models import symdemod as sd
+    from isee3_decoder_tpu_torch.models.decode import (
+        DecodeConfig,
+        decode_frames_batch,
+    )
+    from isee3_decoder_tpu_torch.models.symdemod_tracked import (
+        build_track_tables,
+        device_tables,
+        symdemod_tracked_batched,
+    )
+    from isee3_decoder_tpu_torch.ops.carrier import init_carry, pm_demod_scan
+    from isee3_decoder_tpu_torch.ops.syncword import find_sync
+    from isee3_decoder_tpu_torch.utils.devicesignal import (
+        random_frames,
+        synthesize_iq_device,
+        to_raw_int16,
+    )
+
+    t0 = time.perf_counter()
+    half = NCHAN // 2
+    frames = random_frames(np.random.default_rng(15), NFRAMES_TX)
+    raws = []
+    for h, symrate in enumerate(TRACK_SYMRATES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(150 + h)
+        carriers = torch.as_tensor(
+            20_000.0 + 137.0 * (h * half + np.arange(half)),
+            dtype=torch.float32, device=dev)
+        iq = synthesize_iq_device(
+            torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+                frames, (half, *frames.shape))), device=dev),
+            carriers, gen, nsamples, samprate=SAMPRATE, symrate=symrate,
+            noise_std=NOISE_CLEAN)
+        raws.append(to_raw_int16(iq))
+        del iq
+    raw = torch.cat(raws)
+    del raws
+    n = pm.fftsize
+    T = raw.shape[1] // (2 * n)
+    nwin = (T * n - sd.initial_firstsample(sym)) // sd.window_samples(sym) - 1
+
+    def decode(soft):
+        soft = torch.as_tensor(soft, device=dev)
+        ss, _ = find_sync(soft[:, : FRAMESYMBOLS + SYNCBITS], FRAMESYMBOLS)
+        nf = int((soft.shape[1] - int(ss.max()) - SYNCBITS) // FRAMESYMBOLS)
+        rec = decode_frames_batch(soft, ss.cpu().numpy(), nf, DecodeConfig(),
+                                  device=dev)
+        return rec, nf
+
+    def halves(rec, nf) -> list:
+        ok = matched_mask(rec, frames, NCHAN, nf)
+        out = []
+        for h in range(2):
+            lanes = slice(h * half * nf, (h + 1) * half * nf)
+            out.append((int(rec.good[lanes].sum()), int(ok[lanes].sum()),
+                        half * nf))
+        return out
+
+    _kernels.reset_launches()
+    sd.reset_track_stats()
+    _, pm_out = pm_demod_scan(init_carry(NCHAN, pm, device=dev),
+                              raw[:, : T * 2 * n].reshape(NCHAN, T, 2 * n), pm)
+    bb = pm_out.baseband.transpose(0, 1).reshape(NCHAN, T * n).contiguous()
+    del pm_out, raw
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, untracked = sd.symdemod_scan(bb, sym, nwin)
+    soft_u = untracked.soft.transpose(0, 1).reshape(NCHAN, -1)
+    torch.cuda.synchronize()
+    t_untracked = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    soft_t, infos = symdemod_tracked_batched(bb, sym, nwin)
+    t_tracked = time.perf_counter() - t1
+    iters = list(sd.track_stats["iterations"])
+    reads = list(sd.track_stats["host_reads"])
+    rec_u, nf_u = decode(soft_u)
+    rec_t, nf_t = decode(soft_t)
+    launches = dict(_kernels.LAUNCHES)
+    backends = dict(_kernels.backend_used)
+    for k in ("pm_locked", "spin_down", "prefix_sum", "fano_walk"):
+        require(launches[k] > 0, f"tracking: kernel {k} never launched")
+    require(launches["prefix_sum"] == 2, "tracking: not one K3 launch a "
+            f"demodulation ({launches['prefix_sum']})")
+    require(backends.get("csum") == "cuda", "tracking: K3 not on the card")
+    stats_u, stats_t = halves(rec_u, nf_u), halves(rec_t, nf_t)
+    for label, stats in (("untracked", stats_u), ("tracked", stats_t)):
+        for h, (good, matched, _) in enumerate(stats):
+            require(good == matched, f"tracking, {label}, channels sent at "
+                    f"{TRACK_SYMRATES[h]}: a good frame was not sent "
+                    f"({good} good, {matched} sent)")
+
+    # the tracked soft symbols through the kernels' plain versions
+    with _kernels.plain_reference():
+        soft_p, infos_p = symdemod_tracked_batched(bb, sym, nwin)
+    require(np.array_equal(soft_t, soft_p), "tracking: soft symbols differ "
+            "from plain_reference()'s")
+    for wt, wp in zip(infos, infos_p):
+        for key in wt:
+            require(np.array_equal(wt[key], wp[key]), f"tracking: info "
+                    f"{key} differs from plain_reference()'s")
+    # batching invariance: 4 channels alone == their rows of the batch
+    pick = [0, 1, half, half + 1]
+    soft_4, infos_4 = symdemod_tracked_batched(bb[pick], sym, nwin)
+    require(np.array_equal(soft_4, soft_t[pick, : soft_4.shape[1]])
+            and (soft_t[pick, soft_4.shape[1]:] == 128).all(),
+            "tracking: 4 channels alone differ from their rows of the batch")
+    for w4, wt in zip(infos_4, infos):
+        for key in ("symbolsamples", "firstsample", "energy", "symphase"):
+            require(np.array_equal(w4[key], wt[key][pick]), f"tracking: "
+                    f"{key} of 4 channels alone differs from the batch's")
+
+    # the tables' upload alone, and the untracked demod's time beside it
+    t = build_track_tables(sym, 512)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables = device_tables(t, dev)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t1
+    est = [infos[-1]["symrate"][h * half : (h + 1) * half] for h in range(2)]
+    del bb
+    torch.cuda.empty_cache()
+    log(f"phase 15 tracking: {NCHAN} ch x {T * n / SAMPRATE:.2f} s, "
+        f"{half} sent at {TRACK_SYMRATES[0]} and {half} at "
+        f"{TRACK_SYMRATES[1]} sym/s, demodulated at {sym.symrate}: "
+        f"{nwin} windows; frames (good, sent, possible) untracked "
+        f"{stats_u[0]} / {stats_u[1]}, tracked {stats_t[0]} / {stats_t[1]} "
+        f"(first half / second half); every good frame sent; tracked == "
+        f"plain_reference() bit for bit, 4 channels alone == their rows")
+    log(f"  last window's clock estimates, Hz: first half min "
+        f"{est[0].min():.6f} mean {est[0].mean():.6f} max {est[0].max():.6f};"
+        f" second half min {est[1].min():.6f} mean {est[1].mean():.6f} max "
+        f"{est[1].max():.6f}")
+    log(f"  tracked {t_tracked * 1e3 / nwin:.3f} ms a window "
+        f"({t_tracked * 1e3:.3f} ms for {nwin}, the tables' upload and K3 "
+        f"included), untracked {t_untracked * 1e3 / nwin:.3f} ms a window; "
+        f"hill-climb iterations a window {iters}; host reads a window "
+        f"{reads}; tables {tables.nbytes} bytes, upload "
+        f"{t_upload * 1e3:.3f} ms; launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  card: {card_line()}")
+    return launches
 
 
 def main() -> int:
@@ -2440,8 +2658,9 @@ def main() -> int:
     classic_vtest()
     log(f"phase 11: ok ({time.perf_counter() - t0:.1f} s)")
 
-    # ---- phases 13-14: the streaming chain with its checkpoint, the stage
-    # tools (run before phase 12, whose profiler must come last)
+    # ---- phases 13-15: the streaming chain with its checkpoint, the stage
+    # tools, clock tracking (run before phase 12, whose profiler must come
+    # last)
     new_launches: dict = {}
     for path_launches in (phase_stream(dev, nsamples, pm, sym, rec_thr,
                                        nframes),
@@ -2453,6 +2672,9 @@ def main() -> int:
               "viterbi_b", "viterbi_acs"):
         require(new_launches.get(k, 0) > 0,
                 f"phases 13-14: kernel {k} never launched")
+    track_launches = phase_tracking(dev, nsamples, pm, sym)
+    for k, v in track_launches.items():
+        launches[k] += v
 
     # ---- phase 12: device times under torch.profiler, after every timed run
     profile_kernels(dev, checks, max(int((rec_thr.decoder ==
@@ -2502,6 +2724,7 @@ def main() -> int:
             **({"design": designs[name]} if name in designs else {}),
             "launches": launches[name],
             "stream_cli_launches": new_launches.get(name, 0),
+            "tracking_launches": track_launches.get(name, 0),
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -5,15 +5,18 @@ decisions on stdout (one byte per symbol), status on stderr — the
 second stage of ``pmdemod | symdemod | decode``.  Each window takes one
 prefix sum of the buffered baseband (kernel K3) and reads the timing
 search and the integrate-and-dump from it (ops/symbols
-``timesearch_from_csum``, ``integrate_from_csum``).
+``timesearch_from_csum``, ``integrate_from_csum``).  With -t the window
+also hill-climbs the clock estimate (models/symdemod.track_window, the
+reference's tracker, symdemod.c:133-174), carrying the estimate and the
+timing from window to window.
 
     python -m isee3_decoder_tpu_torch.cli.symdemod -c 1024. < bb.raw > soft.bin
 
 Flags (README.txt:30-33, symdemod.c:56-84):
   -c symbol rate Hz (scaled by the measured spacecraft clock unless a
      decimal point is given; rates < 1000 switch to subcarrier mode)
-  -r sample rate Hz   -w window seconds   -C clocks/symbol   -q quiet
-  -t clock tracking: not in the port yet (exits with status 2)
+  -r sample rate Hz   -w window seconds   -C clocks/symbol   -t track
+  -q quiet
 --device picks the card (default) or the CPU.
 """
 
@@ -33,7 +36,10 @@ from isee3_decoder_tpu_torch.cli._io import (
     write_bytes,
 )
 from isee3_decoder_tpu_torch.config import ACTUALCLOCK, NOMINALCLOCK
-from isee3_decoder_tpu_torch.models.symdemod import initial_firstsample
+from isee3_decoder_tpu_torch.models.symdemod import (
+    initial_firstsample,
+    track_window,
+)
 from isee3_decoder_tpu_torch.ops import symbols as sym_ops
 from isee3_decoder_tpu_torch.ops.symbols import SymConfig
 from isee3_decoder_tpu_torch.utils.timeformat import format_hms
@@ -69,9 +75,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="run on the card (default) or on the CPU")
     a = p.parse_args(argv)
-    if a.track:
-        status("symdemod: -t (clock tracking) is not ported yet")
-        return 2
     dev = _kernels.run_device(a.device)
 
     symrate, clocks = parse_symrate(a.symrate)
@@ -87,7 +90,7 @@ def main(argv=None) -> int:
         status(
             f"symdemod: sample rate {a.samprate:,} Hz; estimation window "
             f"{a.window:.3f} sec; clocks/symbol {clocks}; symbol rate "
-            f"{symrate:.3f} Hz; tracking off"
+            f"{symrate:.3f} Hz; tracking {'on' if a.track else 'off'}"
         )
 
     f = sys.stdin.buffer
@@ -119,20 +122,35 @@ def main(argv=None) -> int:
         if len(buf) < cfg.window * cfg.samprate:
             break
 
-        # one prefix sum (kernel K3) serves the search and the integration;
-        # both clamp reads past its end to the total
-        nsym = cfg.nsymbols
-        csum = sym_ops.samples_csum(buf, sym_ops.SEARCH_PAD)
-        ts = sym_ops.timesearch_from_csum(csum, firstsample, cfg.halfclock,
-                                          nsym, cfg.symbolclocks, cfg.noffsets)
-        symphase = int(ts.symphase[0])
-        firstsample += symphase
-        energy = float(ts.maxenergy[0])
-        gain = 100.0 / np.sqrt(energy)
-        integ = sym_ops.integrate_from_csum(csum, firstsample, cfg.halfclock,
-                                            nsym, cfg.symbolclocks)
-        soft, _ = sym_ops.finish_demod(integ, gain)
-        write_bytes(soft[0].cpu().numpy())
+        if a.track:
+            # one prefix sum (kernel K3) a window, padded as the library
+            # tracker pads the recording's; the climb starts from the
+            # carried timing and clock estimate
+            csum = sym_ops.samples_csum(buf, sym_ops.track_pad(cfg))
+            soft, next_first, symbolsamples, info = track_window(
+                csum, cfg, firstsample, symbolsamples)
+            write_bytes(soft)
+            nsym = soft.size
+            firstsample = info["firstsample"]
+            symphase = info["symphase"]
+            energy = info["energy"]
+        else:
+            # one prefix sum (kernel K3) serves the search and the
+            # integration; both clamp reads past its end to the total
+            nsym = cfg.nsymbols
+            csum = sym_ops.samples_csum(buf, sym_ops.SEARCH_PAD)
+            ts = sym_ops.timesearch_from_csum(
+                csum, firstsample, cfg.halfclock, nsym, cfg.symbolclocks,
+                cfg.noffsets)
+            symphase = int(ts.symphase[0])
+            firstsample += symphase
+            energy = float(ts.maxenergy[0])
+            gain = 100.0 / np.sqrt(energy)
+            integ = sym_ops.integrate_from_csum(
+                csum, firstsample, cfg.halfclock, nsym, cfg.symbolclocks)
+            soft, _ = sym_ops.finish_demod(integ, gain)
+            write_bytes(soft[0].cpu().numpy())
+            next_first = int(firstsample + nsym * symbolsamples)
 
         if not a.quiet:
             t = (firstsample + total_samples) / cfg.samprate
@@ -144,7 +162,7 @@ def main(argv=None) -> int:
                 f"samples; energy {10 * np.log10(energy):.3f} dB"
             )
         total_symbols += nsym
-        firstsample = int(firstsample + nsym * symbolsamples)
+        firstsample = next_first
     return 0
 
 

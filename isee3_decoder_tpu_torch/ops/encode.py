@@ -81,3 +81,28 @@ def encode_bits(
     tail = x[..., x.shape[-1] - kb :].flip(-1).to(torch.int64)
     final_state = (tail * weights).sum(dim=-1)
     return symbols.to(torch.uint8), final_state
+
+
+def encode_bytes(
+    data: torch.Tensor,
+    encstate: torch.Tensor | int = 0,
+    code: CodeSpec = DEFAULT_CODE,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Byte-level wrapper of the reference's API (encode.c:17-22)."""
+    return encode_bits(bytes_to_bits(data), encstate, code)
+
+
+def reencode_symbol_errors(
+    decoded_bits: torch.Tensor,
+    soft_symbols: torch.Tensor,
+    encstate: torch.Tensor | int,
+    code: CodeSpec = DEFAULT_CODE,
+) -> torch.Tensor:
+    """Re-encode decoded bits and count hard-decision symbol mismatches
+    (..., ) int64: the reference chain's self-check (icesync.c:381-390,
+    vdecode.c:174-177), re-encoding the decoder's output and comparing it
+    with hard slices (> 128) of the received soft symbols to estimate the
+    channel's symbol error rate."""
+    symbols, _ = encode_bits(decoded_bits, encstate, code)
+    hard = (soft_symbols.to(torch.int32) > 128).to(torch.uint8)
+    return (symbols != hard).sum(dim=-1)

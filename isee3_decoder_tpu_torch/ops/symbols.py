@@ -74,6 +74,19 @@ class SymConfig:
 #: gather form reads no further than the last edge
 SEARCH_PAD = 8
 
+#: headroom on the JAX package's widened offset axis for per-channel start
+#: spread (its symbols.py:274); here it only enters the clock trackers'
+#: prefix-sum pads, which must match the JAX package's to read the same
+#: entries at a recording's end
+TRACK_DELTA = 384
+
+
+def track_pad(cfg: SymConfig) -> int:
+    """Samples of zero padding the host clock tracker's prefix sum gets
+    past the recording (the JAX package's models/symdemod.py:254-260);
+    the batched tracker adds its offset count (``noffsets``) to it."""
+    return 16 * int(cfg.symbolsamples) + TRACK_DELTA + 576
+
 
 class TimeSearchResult(NamedTuple):
     symphase: torch.Tensor  # (B,) int64 best timing offset in samples
@@ -130,18 +143,34 @@ def _gather_clamped(csum: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return csum.gather(1, flat).reshape(idx.shape)
 
 
+def take_fill(csum: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """csum[b, idx[b, ...]] as ``jnp.take_along_axis`` reads it, which is
+    how the JAX package's clock trackers read their prefix sum: an index
+    in [-L, 0) counts from the row's end, and one outside [-L, L) reads
+    INT32_MIN (its "fill" mode for int32)."""
+    B, L = csum.shape
+    flat = idx.reshape(B, -1).to(torch.int64)
+    flat = torch.where(flat < 0, flat + L, flat)
+    inside = (flat >= 0) & (flat < L)
+    g = csum.gather(1, flat.clamp(0, L - 1))
+    fill = torch.iinfo(csum.dtype).min
+    return torch.where(inside, g, fill).reshape(idx.shape)
+
+
 def integrate_from_csum(
     csum: torch.Tensor,
     firstsample: torch.Tensor | int,
     halfclock: float,
     nsymbols: int,
     symbolclocks: int,
+    fill: bool = False,
 ) -> torch.Tensor:
     """(B, nsymbols) int32 integrators at trial_demod's absolute edge
     rounding nearbyint(firstsample + rel), evaluated EXACTLY in integers:
     the float64 edge table splits host-side into floor + {<.5, >.5, ==.5}
     classes, and half-to-even ties resolve from the parity of
-    firstsample + floor(rel)."""
+    firstsample + floor(rel).  ``fill`` reads edges past the prefix sum
+    as the JAX package's trackers do (take_fill), else clamped."""
     B = csum.shape[0]
     dev = csum.device
     first = torch.as_tensor(firstsample, dtype=torch.int64, device=dev).expand(B)
@@ -153,7 +182,7 @@ def integrate_from_csum(
     tie_d = torch.as_tensor((frac == 0.5).astype(np.int64), device=dev)
     base = first[:, None] + flo_d[None, :]
     abs_edges = base + up_d[None, :] + tie_d[None, :] * (base & 1)
-    g = _gather_clamped(csum, abs_edges)
+    g = (take_fill if fill else _gather_clamped)(csum, abs_edges)
     seg = (g[:, 1:] - g[:, :-1]).reshape(B, nsymbols, symbolclocks, 2)
     return (seg[..., 1] - seg[..., 0]).sum(dim=-1, dtype=torch.int32)
 
@@ -165,12 +194,13 @@ def timesearch_from_csum(
     nsymbols: int,
     symbolclocks: int,
     noffsets: int,
+    fill: bool = False,
 ) -> TimeSearchResult:
     """Full symbol-phase search over ±half a symbol (timesearch,
     symdemod.c:260-335) against a prefix sum.  Edges are firstsample +
     offset + nearbyint(m*halfclock) — the reference's *relative*
     rounding; the strict '>' comparison keeps the earliest maximal
-    offset (symdemod.c:328-332)."""
+    offset (symdemod.c:328-332).  ``fill`` as in integrate_from_csum."""
     B = csum.shape[0]
     dev = csum.device
     half = noffsets // 2
@@ -179,7 +209,8 @@ def timesearch_from_csum(
     rel = torch.as_tensor(search_edges(halfclock, nsymbols, symbolclocks),
                           device=dev)
     abs_edges = first[:, None, None] + offsets[None, :, None] + rel[None, None, :]
-    g = _gather_clamped(csum, abs_edges)  # (B, noffsets, nedges) int32
+    # (B, noffsets, nedges) int32
+    g = (take_fill if fill else _gather_clamped)(csum, abs_edges)
     seg = (g[..., 1:] - g[..., :-1]).reshape(B, noffsets, nsymbols,
                                               symbolclocks, 2)
     integ = (seg[..., 1] - seg[..., 0]).sum(dim=-1, dtype=torch.int32)

@@ -16,20 +16,11 @@ import torch
 
 from isee3_decoder_tpu_torch.config import (
     DEFAULT_CODE,
-    FRAMEBITS,
     SYNC_STATE,
-    SYNCWORD,
     CodeSpec,
 )
 from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
-
-
-def random_frames(rng: np.random.Generator, nframes: int) -> np.ndarray:
-    """(nframes, 128) frame bytes, each ending in the 5 syncword bytes
-    (the invariant tail every real minor frame carries)."""
-    frames = rng.integers(0, 256, (nframes, FRAMEBITS // 8), dtype=np.uint8)
-    frames[:, -5:] = list(SYNCWORD.to_bytes(5, "big"))
-    return frames
+from isee3_decoder_tpu_torch.utils.testsignal import random_frames  # noqa: F401
 
 
 def synthesize_iq_device(

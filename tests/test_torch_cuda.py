@@ -1214,3 +1214,103 @@ def test_receive_stream_checkpoint_resume_on_the_card(dev, tmp_path):
         r, restored = receive_stream(iq[:, lo:hi], cfg, restored)
         got.extend(r)
     assert _flat(got) == _flat(want) and len(_flat(want)) >= 4
+
+
+def _manchester_bb(seed: int, symrates, seconds: float,
+                   samprate: float = 32768.0) -> np.ndarray:
+    """(B, L) int16 Manchester baseband of random symbols, one row per
+    sent clock in ``symrates``."""
+    from isee3_decoder_tpu_torch.utils.testsignal import manchester_waveform
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for f in symrates:
+        syms = rng.integers(0, 2, int(seconds * f) + 8).astype(np.uint8)
+        wave = manchester_waveform(syms, samprate / f)
+        rows.append((2000.0 * wave + rng.normal(0, 150.0, len(wave)))
+                    [: int(seconds * samprate)])
+    return np.stack(rows).astype(np.int16)
+
+
+def test_batched_tracker_on_the_card_equals_the_cpu(dev):
+    """symdemod_tracked_batched on the card (K3's prefix sum, the climb's
+    torch ops there) gives the CPU run's soft symbols and infos; the
+    energies are exact sums, so bit for bit."""
+    from isee3_decoder_tpu_torch.models import symdemod
+    from isee3_decoder_tpu_torch.models.symdemod_tracked import (
+        symdemod_tracked_batched,
+    )
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+
+    cfg = SymConfig(samprate=32768.0, symrate=1024.0)
+    x = _manchester_bb(3, (1024.0, 1024.4, 1023.7, 1024.545), 3.2)
+    _kernels.reset_launches()
+    symdemod.reset_track_stats()
+    soft_g, infos_g = symdemod_tracked_batched(x, cfg, 3)
+    assert _kernels.LAUNCHES["prefix_sum"] == 1
+    assert _kernels.backend_used["csum"] == "cuda"
+    assert len(symdemod.track_stats["iterations"]) == 3
+    soft_c, infos_c = symdemod_tracked_batched(x, cfg, 3, device="cpu")
+    np.testing.assert_array_equal(soft_g, soft_c)
+    for wg, wc in zip(infos_g, infos_c):
+        for key in wc:
+            np.testing.assert_array_equal(np.asarray(wg[key]),
+                                          np.asarray(wc[key]), err_msg=key)
+
+
+def _run_tool(main, argv, stdin: bytes = b"") -> bytes:
+    import io
+    import sys
+    from unittest import mock
+
+    out = io.BytesIO()
+    fake_out = io.TextIOWrapper(out, write_through=True)
+    fake_in = io.TextIOWrapper(io.BytesIO(stdin))
+    with mock.patch.object(sys, "stdout", fake_out), \
+            mock.patch.object(sys, "stdin", fake_in):
+        assert main(argv) == 0
+        fake_out.flush()
+    return out.getvalue()
+
+
+def test_symdemod_tracking_cli_on_the_card_equals_the_cpu(dev):
+    """symdemod -t on the card writes the bytes of --device cpu; K3 runs
+    once a window."""
+    from isee3_decoder_tpu_torch.cli import symdemod as symdemod_cli
+
+    x = _manchester_bb(5, (1024.545,), 3.3)[0]
+    args = ["-q", "-r", "32768", "-c", "1024.", "-t"]
+    _kernels.reset_launches()
+    got = _run_tool(symdemod_cli.main, args, x.tobytes())
+    assert _kernels.LAUNCHES["prefix_sum"] == 3
+    want = _run_tool(symdemod_cli.main, args + ["--device", "cpu"],
+                     x.tobytes())
+    assert len(got) == 3 * 1023 and got == want
+
+
+def test_spindown_cli_on_the_card_equals_the_cpu(dev, tmp_path):
+    """spindown's float64 mix on the card: the CPU's bytes (the fused
+    products of torch.addcmul on both)."""
+    from isee3_decoder_tpu_torch.cli import spindown as spindown_cli
+
+    rng = np.random.default_rng(6)
+    raw = rng.integers(-9000, 9000, 2 * (2 * 131072 + 77)).astype(np.int16)
+    path = tmp_path / "in.iq"
+    raw.tofile(path)
+    for flip in ([], ["-f"]):
+        args = ["-c", "20000.5", "-r", "250000", *flip, str(path)]
+        got = _run_tool(spindown_cli.main, args)
+        want = _run_tool(spindown_cli.main, args + ["--device", "cpu"])
+        assert len(got) == 2 * 131072 * 16 and got == want
+
+
+def test_fanotest_cli_on_the_card(dev):
+    """fanotest walks its frames with K4 on the card."""
+    from isee3_decoder_tpu_torch.cli import fanotest as fanotest_cli
+
+    _kernels.reset_launches()
+    out = _run_tool(fanotest_cli.main, ["-l", "256", "-n", "32", "-e", "4"])
+    last = out.decode().splitlines()[-1]
+    assert last.startswith("trials 32 ")
+    assert int(last.split(" good ")[1].split()[0]) >= 30
+    assert _kernels.LAUNCHES["fano_walk"] >= 1

@@ -218,11 +218,6 @@ def test_symdemod_cli_bytes_match_jax(small_recording):
         "512")
 
 
-def test_symdemod_tracking_is_refused():
-    rc, out = _run_cli(tsymdemod_cli.main, ["-t", "--device", "cpu"])
-    assert rc != 0 and out == b""
-
-
 def test_stage_tools_refuse_a_missing_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
