@@ -35,7 +35,18 @@ the measured clock, ``fanotest``) and clock tracking at 128 channels
 (phase 15: half the channels sent at 1024.0 sym/s, half at 1024.545,
 demodulated at 1024.0 untracked and through ``symdemod_tracked_batched``,
 both decoded; the tracked soft symbols against the kernels' plain
-versions and batching invariance).  Last, after every timed block, the
+versions and batching invariance).  Then the wide Fano walk (phase 16:
+``fano_decode`` on MCQLI32, J50 and J60 frames of 1024 bits encoded by
+the native golden encoder, through K4's wide variant with a 64-bit
+state word, held bit for bit against its plain twin on both designs and
+timed at 256 lanes), the native golden library (phase 17: built from
+native/isee3_io.cpp; its encoder against the port's at MCQLI24 and J60,
+its Viterbi against K10 and K5/K6 on a noisy MCQLI-24 frame) and
+``parallel/`` on logical shards of the card (phase 18: the clean block
+through ``receive_block_sharded`` on a (4, 1) mesh byte for byte against
+the unsharded buffer, ``decode_frame_sharded`` at MCQLI-24 on (1, 2) and
+(1, 4) meshes against ``decode_frame``, ``demod_time_sharded`` +
+``stitch_shards`` decoding the frames sent).  Last, after every timed block, the
 device time of kernels K1 (its search launch and spin-down apart), K2,
 K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
 checked on both designs ("cluster", one thread-block cluster per
@@ -49,7 +60,9 @@ error, or when any check fails.  Imports no JAX.
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
 path (and of phases 13-14 alone, ``stream_cli_launches``, and of phase
-15, ``tracking_launches``), its error
+15, ``tracking_launches``; K4's wide variant, ``fano_walk_wide``, is a
+line of its own with phase 16's launches and per-code times under
+``codes``), its error
 against the plain version, its time, the plain
 version's, the least time the card could take (``bound_ms``: the larger
 of the bytes it must move over the HBM rate and the operations it must
@@ -2479,6 +2492,379 @@ def phase_tracking(dev, nsamples: int, pm, sym) -> dict:
     return launches
 
 
+# ---- phases 16-18 (wide Fano walk, native golden library, parallel/)
+
+#: the wide codes phase 16 walks, and its frames: 1024 bits from state
+#: 0x2A, the tail the low k-1 bits of WIDE_TAIL, BPSK at amplitude 100
+#: plus Gaussian noise of WIDE_SIGMA, cut at WIDE_CYCLES cycles a bit
+#: (some lanes time out), the metric table of DecodeConfig()
+WIDE_CODES = ("MCQLI32", "J50", "J60")
+WIDE_TAIL = 0x155AA55AA55AA
+WIDE_START = 0x2A
+WIDE_SIGMA = 70.0
+WIDE_CYCLES = 4
+WIDE_LANES = 64
+WIDE_TIMED_LANES = 256
+WIDE_TIMED_CYCLES = 12
+
+
+def wide_frames(dev, code, lanes: int, seed: int):
+    """``lanes`` random 1024-bit frames ending in the code's tail, encoded
+    by the native golden encoder (native.conv_encode) and sent through
+    the noisy channel → (bits (lanes, 1024) uint8, soft symbols on dev,
+    tail)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.config import FRAMEBITS
+    from isee3_decoder_tpu_torch.utils import native
+
+    rng = np.random.default_rng(seed)
+    tail = WIDE_TAIL & ((1 << (code.k - 1)) - 1)
+    bits = rng.integers(0, 2, (lanes, FRAMEBITS), dtype=np.uint8)
+    for j in range(code.k - 1):
+        bits[:, FRAMEBITS - 1 - j] = (tail >> j) & 1
+    syms = np.stack([native.conv_encode(row, code, WIDE_START)[0]
+                     for row in np.packbits(bits, axis=1)])
+    noisy = (syms * 2.0 - 1.0) * 100.0 + rng.normal(0.0, WIDE_SIGMA, syms.shape)
+    soft = np.clip(np.round(noisy) + 128, 0, 255).astype(np.uint8)
+    return bits, torch.as_tensor(soft, device=dev), tail
+
+
+def phase_wide_fano(dev) -> tuple[dict, dict]:
+    """Phase 16: K4's wide variant (64-bit state word) for MCQLI32, J50
+    and J60 at 1024 nodes.  The main path: ``ops/fano.fano_decode`` on 64
+    noisy lanes of each code (launch counts set to 0 just before, read
+    just after), its good frames the ones sent (encoded by the native
+    golden encoder); then the walk alone against its plain twin (the
+    step-by-step int64 walk) on the card, bit for bit on both designs,
+    the plain twin timed once; then the kernel timed at 256 lanes and
+    WIDE_TIMED_CYCLES cycles a bit.  Returns (the main path's launches,
+    the kernels-line record of the wide variant)."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import CODES, FRAMEBITS
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.ops import fano_cuda
+    from isee3_decoder_tpu_torch.ops.fano import (
+        FanoParams,
+        _walk_inputs,
+        fano_decode,
+    )
+
+    t0 = time.perf_counter()
+    dcfg = DecodeConfig()
+    mettab = torch.as_tensor(dcfg.mettab(), device=dev)
+    inputs = {name: wide_frames(dev, CODES[name], WIDE_LANES, seed=160 + i)
+              for i, name in enumerate(WIDE_CODES)}
+    params = FanoParams(dcfg.fano_delta, WIDE_CYCLES)
+    fano_decode(inputs["J60"][1][:2], mettab, FRAMEBITS, WIDE_START,
+                inputs["J60"][2], CODES["J60"], params)  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    results = {name: fano_decode(soft, mettab, FRAMEBITS, WIDE_START, tail,
+                                 CODES[name], params)
+               for name, (_, soft, tail) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    backends = dict(_kernels.backend_used)
+    require(launches["fano_walk"] == len(WIDE_CODES),
+            f"wide Fano: fano_walk launches {launches['fano_walk']}")
+    require(backends.get("fano_walk") == "warp64",
+            f"wide Fano: K4 design {backends.get('fano_walk')}")
+    rec = {"max_abs_err": 0, "library_ms": None, "codes": {}}
+    for name, (bits, soft, tail) in inputs.items():
+        code = CODES[name]
+        res = results[name]
+        good = (res.goodbits == FRAMEBITS).cpu().numpy()
+        sent = np.array([np.array_equal(res.bits[i].cpu().numpy(), bits[i])
+                         for i in range(WIDE_LANES)])
+        require(good.any(), f"wide Fano {name}: no frame decoded")
+        require(bool(sent[good].all()), f"wide Fano {name}: a good frame "
+                "is not the one sent")
+        # the walk alone against its plain twin, both designs
+        m4, regs = _walk_inputs(soft, mettab, FRAMEBITS, WIDE_START, tail,
+                                code, None)
+        args = (m4, regs, code, dcfg.fano_delta, WIDE_CYCLES)
+        start, end = _events()
+        start.record()
+        bits_p, st_p = fano_cuda.fano_walk_wide_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for design in ("warp", "thread"):
+            bits_k, st_k = fano_cuda.fano_walk_wide(*args, design=design)
+            require(torch.equal(bits_k, bits_p),
+                    f"K4 wide {name} {design}: bits differ from plain")
+            require(torch.equal(st_k, st_p),
+                    f"K4 wide {name} {design}: np/gamma/cycles/t differ")
+        nfail = int((st_p[:, 0] + 1 != FRAMEBITS).sum())
+        steps = int(st_p[:, 2].max())
+        require(nfail > 0, f"wide Fano {name}: no lane timed out")
+        require(int(st_p[:, 2][st_p[:, 0] + 1 == FRAMEBITS].max()) > FRAMEBITS,
+                f"wide Fano {name}: no decoded lane backtracked")
+        ms = cuda_ms(lambda: fano_cuda.fano_walk_wide(*args), 5)
+        c = dict(ms=ms, plain_ms=plain_ms, max_lane_steps=steps,
+                 good=int(good.sum()), timed_out=nfail,
+                 **bound(m4.numel() * 4 + regs.numel() * 8 + bits_k.numel()
+                         + st_k.numel() * 4,
+                         int(st_k[:, 2].sum()) * FANO_OPS_PER_STEP,
+                         I32_OPS_PER_S, steps * FANO_STEP_CYCLES))
+        # timed at 256 lanes, the tier-1 cap
+        _, soft256, _ = wide_frames(dev, code, WIDE_TIMED_LANES, seed=170)
+        m4b, regsb = _walk_inputs(soft256, mettab, FRAMEBITS, WIDE_START,
+                                  tail, code, None)
+        argsb = (m4b, regsb, code, dcfg.fano_delta, WIDE_TIMED_CYCLES)
+        bits_b, st_b = fano_cuda.fano_walk_wide(*argsb)
+        steps_b = int(st_b[:, 2].max())
+        c.update(
+            ms_256=cuda_ms(lambda: fano_cuda.fano_walk_wide(*argsb), 5),
+            thread_ms_256=cuda_ms(
+                lambda: fano_cuda.fano_walk_wide(*argsb, design="thread"), 3),
+            max_lane_steps_256=steps_b,
+            good_256=int((st_b[:, 0] + 1 == FRAMEBITS).sum()),
+            bound_ms_256=bound(
+                m4b.numel() * 4 + regsb.numel() * 8 + bits_b.numel()
+                + st_b.numel() * 4, int(st_b[:, 2].sum()) * FANO_OPS_PER_STEP,
+                I32_OPS_PER_S, steps_b * FANO_STEP_CYCLES)["bound_ms"])
+        c["ns_per_step_256"] = c["ms_256"] * 1e6 / steps_b
+        rec["codes"][name] = c
+        log(f"  K4 wide {name}: {WIDE_LANES} lanes at {WIDE_CYCLES} cycles/bit"
+            f" == plain on both designs; good {c['good']}, timed out {nfail}, "
+            f"max cycles {steps}; {ms:.4f} ms (plain {plain_ms:.1f}, bound "
+            f"{c['bound_ms']:.4f} by {c['bound_by']}); at "
+            f"{WIDE_TIMED_LANES} lanes, {WIDE_TIMED_CYCLES} cycles/bit: warp "
+            f"{c['ms_256']:.4f} ms ({c['ns_per_step_256']:.1f} ns per "
+            f"micro-step, {steps_b} steps), thread {c['thread_ms_256']:.4f}, "
+            f"bound {c['bound_ms_256']:.4f}, good {c['good_256']}")
+    # the kernels line's numbers: J60's 64-lane case (same inputs for the
+    # kernel, the plain twin and the bound)
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "latency_bound_ms",
+                "max_lane_steps"):
+        rec[key] = rec["codes"]["J60"][key]
+    log(f"phase 16 wide Fano: {', '.join(WIDE_CODES)} at {FRAMEBITS} nodes "
+        f"through fano_decode, launches {launches['fano_walk']} (design "
+        f"{backends.get('fano_walk')}), good frames == sent; K4 wide == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, rec
+
+
+def phase_native(dev) -> None:
+    """Phase 17: the native golden library, built from native/isee3_io.cpp
+    into build/native_io/: the port's encoder == conv_encode at MCQLI24
+    and J60, and on a noisy MCQLI-24 frame of 96 bits the classic
+    decoder (K10), the fused decoder (K5/K6) and viterbi_decode_frame
+    give the same bits."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import CODES, MCQLI24
+    from isee3_decoder_tpu_torch.ops import viterbi
+    from isee3_decoder_tpu_torch.ops.encode import bytes_to_bits, encode_bits
+    from isee3_decoder_tpu_torch.ops.viterbi_fused import decode_frame_fused
+    from isee3_decoder_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    require(native.available(), f"native library: {native.build_error}")
+    rng = np.random.default_rng(17)
+    for name in ("MCQLI24", "J60"):
+        code = CODES[name]
+        data = rng.integers(0, 256, 128, dtype=np.uint8)
+        state = int(rng.integers(0, 1 << 62)) & ((1 << code.k) - 1)
+        syms_n, final_n = native.conv_encode(data, code, state)
+        syms_t, final_t = encode_bits(
+            bytes_to_bits(torch.as_tensor(data, device=dev)), state, code)
+        require(np.array_equal(syms_t.cpu().numpy(), syms_n),
+                f"native: encode_bits != conv_encode at {name}")
+        require(int(final_t) & ((1 << code.k) - 1) == final_n,
+                f"native: final state differs at {name}")
+    nbits = 96
+    bits = rng.integers(0, 2, nbits, dtype=np.uint8)
+    bits[-(MCQLI24.k - 1):] = 0
+    syms, _ = native.conv_encode(np.packbits(bits), MCQLI24, 0)
+    noisy = np.clip(np.where(syms > 0, 168.0, 88.0)
+                    + rng.normal(0, 28.0, syms.shape), 0, 255).astype(np.uint8)
+    t1 = time.perf_counter()
+    golden = native.viterbi_decode_frame(noisy, nbits, 0, 0, MCQLI24)
+    t_golden = time.perf_counter() - t1
+    soft = torch.as_tensor(noisy, device=dev)[None, :]
+    _kernels.reset_launches()
+    k10 = viterbi.decode_frame(soft, nbits, 0, 0, MCQLI24, device=dev)
+    fused = decode_frame_fused(soft, nbits, 0, 0, MCQLI24)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["viterbi_acs"] == nbits and launches["viterbi_a"] > 0
+            and launches["viterbi_b"] > 0, f"native: launches {launches}")
+    require(np.array_equal(k10[0].cpu().numpy(), golden),
+            "native: K10 decode_frame != viterbi_decode_frame")
+    require(np.array_equal(fused[0].cpu().numpy(), golden),
+            "native: K5/K6 decode_frame_fused != viterbi_decode_frame")
+    hard = (noisy > 128).astype(np.uint8)
+    log(f"phase 17 native golden: {native.library_path().name} built; "
+        f"encode_bits == conv_encode at MCQLI24 and J60; a noisy 96-bit "
+        f"MCQLI-24 frame ({int((hard != syms).sum())} hard symbol errors): "
+        f"K10 == K5/K6 == viterbi_decode_frame ({t_golden:.2f} s on the "
+        f"host), == sent {np.array_equal(golden, bits)}; launches K10 "
+        f"{launches['viterbi_acs']}, K5 {launches['viterbi_a']}, K6 "
+        f"{launches['viterbi_b']} ({time.perf_counter() - t0:.1f} s)")
+
+
+def timed_call(fn):
+    """(fn(), seconds) with the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_parallel(dev, nsamples: int, nframes: int, cfg) -> dict:
+    """Phase 18: parallel/ on logical shards of one card (a mesh whose
+    devices repeat): the bench block's clean regime through
+    receive_block_sharded over a (4, 1) mesh == receive_block_device's
+    buffer byte for byte; decode_frame_sharded at MCQLI-24, 1024 bits,
+    B = 2 on (1, 2) and (1, 4) meshes == ops/viterbi.decode_frame; the
+    timeshard tests' narrowband recording (complex IQ: the plain pm path,
+    then K3) through demod_time_sharded + stitch_shards decodes the
+    frames sent.  Returns the launches of the three paths (each counted
+    from 0)."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import FRAMESYMBOLS, MCQLI24, SYNC_STATE
+    from isee3_decoder_tpu_torch.models.decode import (
+        DecodeConfig,
+        decode_stream,
+    )
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        demod_to_symbols,
+        receive_block_device,
+    )
+    from isee3_decoder_tpu_torch.ops import viterbi
+    from isee3_decoder_tpu_torch.ops.carrier import PMConfig
+    from isee3_decoder_tpu_torch.ops.encode import encode_bits
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+    from isee3_decoder_tpu_torch.parallel import (
+        decode_frame_sharded,
+        demod_time_sharded,
+        make_mesh,
+        receive_block_sharded,
+        shard_channels,
+        stitch_shards,
+    )
+    from isee3_decoder_tpu_torch.utils import testsignal
+
+    t0 = time.perf_counter()
+    total: dict = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the channel-sharded receive chain
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=0)
+    mesh4 = make_mesh(4, 1, devices=[dev] * 4)
+    buf_1, t_1 = timed_call(lambda: receive_block_device(iq, nframes,
+                                                         FRAMESYMBOLS, cfg))
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    buf_s, t_s = timed_call(lambda: receive_block_sharded(iq, nframes, cfg,
+                                                          mesh4))
+    la = dict(_kernels.LAUNCHES)
+    count(la)
+    require(torch.equal(buf_s, buf_1),
+            "parallel: sharded receive buffer != unsharded")
+    for k in ("pm_locked", "spin_down", "prefix_sum"):
+        require(la[k] > 0, f"parallel: receive_block_sharded never launched {k}")
+    shard_s = [timed_call(lambda b=b: receive_block_device(
+        b, nframes, FRAMESYMBOLS, cfg))[1] for b in shard_channels(iq, mesh4)]
+    _, t_1b = timed_call(lambda: receive_block_device(iq, nframes,
+                                                      FRAMESYMBOLS, cfg))
+    _, t_sb = timed_call(lambda: receive_block_sharded(iq, nframes, cfg,
+                                                       mesh4))
+    log(f"  parallel (a): receive_block_sharded over (4, 1) of cuda:0, "
+        f"{NCHAN} ch x {nframes} frames: buffer == unsharded "
+        f"({buf_s.numel()} bytes); sharded {t_s * 1e3:.1f} / "
+        f"{t_sb * 1e3:.1f} ms against unsharded {t_1 * 1e3:.1f} / "
+        f"{t_1b * 1e3:.1f} ms; per shard of {NCHAN // 4} ch "
+        f"{'/'.join(f'{t * 1e3:.1f}' for t in shard_s)} ms; launches {la}")
+    del iq, buf_s, buf_1
+    torch.cuda.empty_cache()
+
+    # (b) the state-sharded Viterbi at the mission code's full lattice
+    rng = np.random.default_rng(18)
+    nbits, B = 1024, 2
+    bits = torch.as_tensor(rng.integers(0, 2, (B, nbits)), device=dev)
+    for j in range(MCQLI24.k - 1):  # the sync state's bits end each frame
+        bits[:, nbits - 1 - j] = (SYNC_STATE >> j) & 1
+    syms, end = encode_bits(bits, SYNC_STATE, MCQLI24)
+    noise = torch.as_tensor(rng.normal(0, 60, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise)
+                       + 128, 0, 255).to(torch.uint8)
+    end_state = int(end[0]) & MCQLI24.state_mask
+    require(bool((end & MCQLI24.state_mask == end_state).all()),
+            "parallel: the frames' end states differ")
+    _kernels.reset_launches()
+    want, t_k10 = timed_call(lambda: viterbi.decode_frame(
+        soft, nbits, SYNC_STATE, end_state, MCQLI24, device=dev))
+    count(_kernels.LAUNCHES)
+    require(torch.equal(want, bits.to(torch.uint8)),
+            "parallel: the unsharded decode is not the frames sent")
+    steps = {}
+    for S in (2, 4):
+        mesh = make_mesh(1, S, devices=[dev] * S)
+        got, t_sh = timed_call(lambda: decode_frame_sharded(
+            soft, mesh, nbits, SYNC_STATE, end_state, MCQLI24))
+        require(torch.equal(got, want),
+                f"parallel: decode_frame_sharded on (1, {S}) != decode_frame")
+        steps[S] = t_sh * 1e3 / nbits
+        del got
+        torch.cuda.empty_cache()
+    log(f"  parallel (b): decode_frame_sharded MCQLI-24, {nbits} bits, B = "
+        f"{B} == decode_frame on (1, 2) and (1, 4) of cuda:0; ms a step "
+        f"(whole decode incl. chainback / {nbits}): S=2 {steps[2]:.3f}, S=4 "
+        f"{steps[4]:.3f}, unsharded K10 path {t_k10 * 1e3 / nbits:.3f}")
+
+    # (c) the time-sharded demod on the timeshard tests' narrowband config
+    tcfg = PipelineConfig(
+        pm=PMConfig(samprate=32768.0, binsize=8.0),
+        sym=SymConfig(samprate=32768.0, symrate=256.0, window=0.5),
+        decode=DecodeConfig())
+    trng = np.random.default_rng(1)
+    tframes = testsignal.random_frames(trng, 4)
+    tiq = testsignal.synthesize_iq(tframes, samprate=32768.0, symrate=256.0,
+                                   carrier=4104.0, noise_std=300.0, rng=trng)
+    _kernels.reset_launches()
+    (soft_sh, plan), t_ts = timed_call(lambda: demod_time_sharded(
+        tiq, tcfg, make_mesh(4, 1, devices=[dev] * 4)))
+    lc = dict(_kernels.LAUNCHES)
+    count(lc)
+    stream = stitch_shards(soft_sh, plan, tcfg)
+    recs, _ = decode_stream(stream, tcfg.decode, device=dev)
+    goods = [bytes(r.data[0]) for r in recs if r.good[0]]
+    sent = {bytes(f) for f in tframes}
+    soft_seq = demod_to_symbols(torch.as_tensor(tiq, device=dev)[None, :],
+                                tcfg)[0]
+    recs_seq, _ = decode_stream(soft_seq, tcfg.decode, device=dev)
+    seq = [bytes(r.data[0]) for r in recs_seq if r.good[0]]
+    require(len(goods) >= 1 and all(g in sent for g in goods),
+            "parallel: the stitched stream's good frames are not the ones sent")
+    require(goods == seq, "parallel: stitched frames != sequential frames")
+    # complex IQ takes the plain pm path, as in the JAX package: K3 only
+    require(lc["prefix_sum"] >= plan.nshards,
+            f"parallel: demod_time_sharded launches {lc}")
+    log(f"  parallel (c): demod_time_sharded over 4 logical shards "
+        f"({plan.chunk_windows} windows a shard, halo {plan.halo_windows}), "
+        f"{t_ts * 1e3:.1f} ms: {len(goods)} good frames, all sent, == the "
+        f"sequential demod's; launches {lc}")
+    log(f"phase 18 parallel: sharded buffer, sharded Viterbi and stitched "
+        f"frames == unsharded ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: package {PKG}/ not found beside this script",
@@ -2676,6 +3062,16 @@ def main() -> int:
     for k, v in track_launches.items():
         launches[k] += v
 
+    # ---- phases 16-18: the wide Fano walk, the native golden library,
+    # parallel/ on logical shards (before phase 12 as well)
+    wide_launches, checks["fano_walk_wide"] = phase_wide_fano(dev)
+    phase_native(dev)
+    parallel_launches = phase_parallel(dev, nsamples, nframes, cfg)
+    for path_launches in (wide_launches, parallel_launches):
+        for k, v in path_launches.items():
+            launches[k] += v
+    torch.cuda.empty_cache()
+
     # ---- phase 12: device times under torch.profiler, after every timed run
     profile_kernels(dev, checks, max(int((rec_thr.decoder ==
                                           DECODER_VITERBI).sum()), 1))
@@ -2701,13 +3097,18 @@ def main() -> int:
         "pm_scan": ("carrier.cu", "isee3_decoder_tpu/ops/carrier_pallas.py:363"),
         "viterbi_acs": ("viterbi_acs.cu",
                         "isee3_decoder_tpu/ops/viterbi_pallas.py:39"),
+        # K4's wide variant: the XLA wide walk of the JAX package
+        "fano_walk_wide": ("fano.cu", "isee3_decoder_tpu/ops/fano.py:528"),
     }
+    launches["fano_walk_wide"] = wide_launches["fano_walk"]
     # kernels whose design was rebuilt for the card, as the line names it
     designs = {
         "viterbi_b": "register stages: j steps by warp shuffles, decisions "
                      "by lane ballots, the row as int16 pairs",
         "fano_walk": "one warp per lane: its metrics and tape in shared "
                      "memory, backtrack runs by ballots",
+        "fano_walk_wide": "K4 on a 64-bit state word (24-byte tape "
+                          "records): one warp per lane, as K4",
         "spin_down": "cluster: one thread-block cluster per channel, one "
                      "read and one sincosf a sample, the moments across the "
                      "cluster by distributed shared memory",
@@ -2735,7 +3136,7 @@ def main() -> int:
                 "max_lane_steps", "ns_per_step", "thread_ms",
                 "thread_ns_per_step", "two_pass_ms", "narrowband_ms",
                 "narrowband_plain_ms", "narrowband_library_ms",
-                "narrowband_bound_ms")
+                "narrowband_bound_ms", "codes")
                if key in checks[name]},
         }
         for name in meta

@@ -54,7 +54,8 @@ LAUNCHES: dict[str, int] = {
 #: "pm_locked" reads K1's search design ("columns" or "direct",
 #: carrier_cuda.pm_locked_plan); "spin" the spin-down design of K1 or K2
 #: ("cluster" or "two_pass", carrier_cuda.spin_plan); "fano_walk" reads
-#: K4's design ("warp" or "thread", fano_cuda.fano_walk_plan);
+#: K4's design ("warp" or "thread", fano_cuda.fano_walk_plan; "warp64"
+#: or "thread64" for its wide variant);
 #: "pm_scan" reads "fallback" when the fused scan's result was discarded
 #: for the block scan (carrier.pm_demod_scan_csum); "viterbi_path" reads
 #: "classic" (K10, ops/viterbi) or "fused" (K5/K6) for the Viterbi
@@ -71,6 +72,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _L = ctypes.c_longlong
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     # packed, row_stride, iw, B, n, K, samprate, binsize, flip, dop,
     # chirp, tab, smem, spin_cluster, spin_threads, bb, stat, spec, cyc,
@@ -87,6 +89,9 @@ _SIGNATURES = {
     # poly2, g1flip, g2flip, warp_lanes, smem, tape, bits, stats, stream
     "fano_walk_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P),
+    # the same with the wide variant's int64 regs and 64-bit polynomials
+    "fano_walk_wide_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _U64, _U64,
+                              _I, _I, _I, _I, _P, _P, _P, _P),
     # metrics, syms, base, dec, dec_bstride, dec_tstride, B, rowb, colb,
     # nsteps, q1, q2, g1flip, g2flip, tiles, threads, smem, stream
     "viterbi_a_launch": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,

@@ -6,9 +6,10 @@ delta tightening/relaxation (fano.c:110-189), known tail-bit forcing
 walk itself runs in kernel K4 (``fano_cuda.fano_walk``) on the card and
 in its plain lockstep version on the CPU; the metric precompute and the
 root-node setup stay here, as they stay in jnp outside the JAX
-package's Pallas call.  Only the packed single-word walk (codes with
-fewer than 30 effective state bits, e.g. MCQLI-24) is ported; the wide
-split-word walk for K>31 codes is not.
+package's Pallas call.  Codes of fewer than 30 effective state bits
+(MCQLI-24 and the other K=24 codes) take the packed walk with an int32
+state word; the wide codes (MCQLI32, MJ, LL, BLLF47, JSODP47, MCQLI48,
+JQLIODP48, J50, J60) take K4's wide variant with an int64 one.
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ class FanoParams:
 
 
 def _parity(x: torch.Tensor) -> torch.Tensor:
-    """Parity of the set bits (encode.c:4-6) by XOR folding."""
+    """Parity of the set bits (encode.c:4-6) by XOR folding; an int64
+    word folds its high half in first."""
+    if x.dtype == torch.int64:
+        x = x ^ (x >> 32)
     x = x ^ (x >> 16)
     x = x ^ (x >> 8)
     x = x ^ (x >> 4)
@@ -100,14 +104,20 @@ def fano_decode(
 
     ``goodbits == nbits`` signals success as the reference's return value
     does (fano.c:38,204).
+
+    Codes of 30 or more state bits (JAX fano.py:162) take the wide walk:
+    their host-int ``encstate`` / ``tailbits`` go in as int64 lanes.
     """
-    if code.kbits + 1 >= 31:
-        raise NotImplementedError(
-            f"{code.name}: the wide (K>30 state bits) Fano walk is not "
-            "ported yet (ROADMAP: wide split-word walk)"
-        )
+    if is_wide(code):
+        return _fano_decode_wide(symbols, mettab, nbits, encstate, tailbits,
+                                 code, params, skip)
     return _fano_decode_packed(symbols, mettab, nbits, encstate, tailbits,
                                code, params, skip)
+
+
+def is_wide(code: CodeSpec) -> bool:
+    """True for the codes whose walk carries 30 or more state bits."""
+    return code.kbits + 1 >= 31
 
 
 def _fano_decode_packed(
@@ -130,10 +140,41 @@ def _fano_decode_packed(
                                   code, skip)
     bits, stats = fano_cuda.fano_walk(metrics4, regs, code, params.delta,
                                       params.maxcycles)
+    return _result(bits, stats, nbits)
+
+
+def _fano_decode_wide(
+    symbols: torch.Tensor,
+    mettab: torch.Tensor,
+    nbits: int,
+    encstate: int | torch.Tensor,
+    tailbits: int | torch.Tensor,
+    code: CodeSpec,
+    params: FanoParams,
+    skip: torch.Tensor | None,
+) -> FanoResult:
+    """The wide walk (JAX ``_fano_decode_wide``, fano.py:528) for codes of
+    30 to 60 state bits: root setup here, walk in K4's wide variant (or
+    its plain version on the CPU).  The JAX package splits the encoder
+    state into two int32 words because its jit truncates wide ints; torch
+    has int64 and kbits <= 60, so the state is one int64 word here."""
+    from isee3_decoder_tpu_torch.ops import fano_cuda
+
+    if symbols.ndim == 1:
+        symbols = symbols[None, :]
+    metrics4, regs = _walk_inputs(symbols, mettab, nbits, encstate, tailbits,
+                                  code, skip)
+    bits, stats = fano_cuda.fano_walk_wide(metrics4, regs, code, params.delta,
+                                           params.maxcycles)
+    return _result(bits, stats, nbits)
+
+
+def _result(bits: torch.Tensor, stats: torch.Tensor, nbits: int) -> FanoResult:
+    """The walk's (bits, [np, gamma, cycles, t]) as a FanoResult."""
     goodbits = stats[:, 0] + 1
     # fano.c:193-202 as used by decode.c:201: only the first goodbits/8
     # FULL bytes of the path are copied out, the rest stays zero
-    node = torch.arange(nbits, dtype=torch.int32, device=symbols.device)[None, :]
+    node = torch.arange(nbits, dtype=torch.int32, device=bits.device)[None, :]
     valid = node < ((goodbits // 8) * 8)[:, None]
     bits = torch.where(valid, bits, 0).to(torch.uint8)
     return FanoResult(bits=bits, goodbits=goodbits, metric=stats[:, 1],
@@ -150,14 +191,17 @@ def _walk_inputs(
     skip: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The walk's inputs for (B, 2N) soft symbols: (B, N, 4) int32 branch
-    metrics and (B, 5) int32 root registers [tm0, tm1, enc, done,
-    tailbits]."""
+    metrics and (B, 5) root registers [tm0, tm1, enc, done, tailbits],
+    int32 for the packed walk and int64 for the wide one."""
     B = symbols.shape[0]
     dev = symbols.device
     metrics4 = _metrics4(symbols, mettab, N)
+    word = torch.int64 if is_wide(code) else torch.int32
 
     def lanes(v) -> torch.Tensor:
-        return torch.as_tensor(v, dtype=torch.int32, device=dev).expand(B)
+        if word == torch.int64 and isinstance(v, int):
+            v = _signed64(v)
+        return torch.as_tensor(v, dtype=word, device=dev).expand(B)
 
     # root node (fano.c:81-107): the encoder hypothesis only matters mod
     # 2^kbits, which frees bit kbits of the tape word for the branch index
@@ -168,16 +212,23 @@ def _walk_inputs(
     m0 = root.gather(1, lsym0[:, None])[:, 0]
     m1 = root.gather(1, (3 ^ lsym0)[:, None])[:, 0]
     better1 = m1 >= m0  # reference: m0 > m1 selects the 0-branch first
-    done0 = (torch.zeros(B, dtype=torch.int32, device=dev) if skip is None
-             else torch.as_tensor(skip, device=dev).expand(B).to(torch.int32))
+    done0 = (torch.zeros(B, dtype=word, device=dev) if skip is None
+             else torch.as_tensor(skip, device=dev).expand(B).to(word))
     regs = torch.stack(
         [
-            torch.where(better1, m1, m0),
-            torch.where(better1, m0, m1),
-            enc0 | better1.to(torch.int32),
+            torch.where(better1, m1, m0).to(word),
+            torch.where(better1, m0, m1).to(word),
+            enc0 | better1.to(word),
             done0,
             lanes(tailbits),
         ],
         dim=1,
-    ).to(torch.int32).contiguous()
+    ).contiguous()
     return metrics4, regs
+
+
+def _signed64(v: int) -> int:
+    """A host int's low 64 bits as a signed int64 value (the wide walk
+    reads bits 0..59 of a state and 0..58 of a tail)."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v

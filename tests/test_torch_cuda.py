@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from isee3_decoder_tpu_torch import _kernels
-from isee3_decoder_tpu_torch.config import CodeSpec, DEFAULT_CODE, SYNC_STATE
+from isee3_decoder_tpu_torch.config import CODES, CodeSpec, DEFAULT_CODE, SYNC_STATE
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
 from isee3_decoder_tpu_torch.ops import prefix_cuda
@@ -26,7 +26,9 @@ from isee3_decoder_tpu_torch.ops.fano import (
     FanoParams,
     _fano_decode_packed,
     _walk_inputs,
+    fano_decode,
 )
+from isee3_decoder_tpu_torch.parallel import decode_frame_sharded, make_mesh
 from isee3_decoder_tpu_torch.utils.devicesignal import (
     random_frames,
     synthesize_iq_device,
@@ -425,6 +427,96 @@ def test_k4_decode_matches_plain(dev, code, nbits, lanes, sigma, maxcycles):
     for field in ("bits", "goodbits", "metric", "cycles"):
         assert torch.equal(getattr(r_k, field)[live], getattr(r_p, field)[live])
     assert (r_k.goodbits[live] != nbits).any()
+
+
+@pytest.mark.parametrize("design", ["warp", "thread"])
+@pytest.mark.parametrize("name,nbits,lanes,sigma,maxcycles", [
+    ("MCQLI32", 256, 37, 80.0, 3),  # 37 lanes: a ragged last block
+    ("J50", 128, 20, 75.0, 4),
+    ("J60", 1024, 8, 70.0, 2),
+    ("BLLF47", 5811, 3, 70.0, 1),  # one lane too long for shared memory
+])
+def test_k4_wide_exact(dev, name, nbits, lanes, sigma, maxcycles, design):
+    """K4's wide variant (64-bit state word) on both designs == its plain
+    twin (the step-by-step int64 walk) on every lane, skipped ones
+    included; each launch counts as a fano_walk launch and records
+    "warp64" / "thread64"; "warp" pinned where a lane does not fit
+    raises."""
+    code = CODES[name]
+    rng = np.random.default_rng(nbits + lanes)
+    tail = int(rng.integers(0, 1 << (code.k - 1)))
+    bits = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)), device=dev)
+    for j in range(code.k - 1):
+        bits[:, nbits - 1 - j] = (tail >> j) & 1
+    syms, _ = encode_bits(bits, 0x2A, code)
+    noise = torch.as_tensor(rng.normal(0, sigma, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    mettab = torch.as_tensor(DecodeConfig().mettab(), device=dev)
+    skip = torch.as_tensor(rng.random(lanes) < 0.15, device=dev)
+    m4, regs = _walk_inputs(soft, mettab, nbits, 0x2A, tail, code, skip)
+    assert regs.dtype == torch.int64
+    fits = fano_cuda.lane_bytes(nbits, fano_cuda.WIDE_RECORD_BYTES) <= 232_448
+    if design == "warp" and not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            fano_cuda.fano_walk_wide(m4, regs, code, 32, maxcycles, design)
+        return
+    n0 = _kernels.LAUNCHES["fano_walk"]
+    bits_k, st_k = fano_cuda.fano_walk_wide(m4, regs, code, 32, maxcycles,
+                                            design)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fano_walk"] == n0 + 1
+    assert _kernels.backend_used["fano_walk"] == design + "64"
+    bits_p, st_p = fano_cuda.fano_walk_wide_plain(m4, regs, code, 32,
+                                                  maxcycles)
+    assert torch.equal(bits_k, bits_p)
+    assert torch.equal(st_k, st_p)
+
+
+def test_k4_wide_decode_matches_plain(dev):
+    """fano_decode on J60 frames (root setup, the wide walk, the bytes
+    decode.c copies out) on the card == under plain_reference(), and the
+    decoded frames are the ones sent."""
+    code = CODES["J60"]
+    rng = np.random.default_rng(60)
+    nbits, lanes, tail = 512, 16, 0x155AA55AA55AA
+    bits = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)), device=dev)
+    for j in range(code.k - 1):
+        bits[:, nbits - 1 - j] = (tail >> j) & 1
+    syms, _ = encode_bits(bits, 7, code)
+    noise = torch.as_tensor(rng.normal(0, 65, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    mettab = torch.as_tensor(DecodeConfig().mettab(), device=dev)
+    params = FanoParams(32, 4)
+    r_k = fano_decode(soft, mettab, nbits, 7, tail, code, params)
+    assert _kernels.backend_used["fano_walk"] == "warp64"
+    with _kernels.plain_reference():
+        r_p = fano_decode(soft, mettab, nbits, 7, tail, code, params)
+    for field in ("bits", "goodbits", "metric", "cycles"):
+        assert torch.equal(getattr(r_k, field), getattr(r_p, field))
+    good = r_k.goodbits == nbits
+    assert good.any()
+    assert torch.equal(r_k.bits[good], bits[good].to(torch.uint8))
+
+
+def test_sharded_viterbi_on_logical_shards_of_the_card(dev):
+    """decode_frame_sharded on (1, 4) and (2, 2) meshes of cuda:0 ==
+    ops/viterbi.decode_frame (K10) at K = 18."""
+    rng = np.random.default_rng(18)
+    nbits, B = 200, 2
+    bits = torch.as_tensor(rng.integers(0, 2, (B, nbits)), device=dev)
+    bits[:, -(K18.k - 1):] = 0
+    syms, _ = encode_bits(bits, 0, K18)
+    noise = torch.as_tensor(rng.normal(0, 55, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    want = viterbi.decode_frame(soft, nbits, 0, 0, K18)
+    for ch, st in ((1, 4), (2, 2)):
+        mesh = make_mesh(ch, st, devices=[dev] * (ch * st))
+        got = decode_frame_sharded(soft, mesh, nbits, 0, 0, K18)
+        assert got.device == dev
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("nbits", [64, 1024, 7263, 7264])

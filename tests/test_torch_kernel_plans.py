@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from isee3_decoder_tpu_torch.config import DEFAULT_CODE, SYNC_STATE, CodeSpec
+from isee3_decoder_tpu_torch.config import CODES, DEFAULT_CODE, SYNC_STATE, CodeSpec
 from isee3_decoder_tpu_torch.models.decode import DecodeConfig
 from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, channelizer_cuda
 from isee3_decoder_tpu_torch.ops import fano_cuda, prefix_cuda
@@ -898,9 +898,11 @@ def _k4_warp_walk(m4, regs, code, delta, maxcycles, seen):
     search over the records below it otherwise.  At every violation the
     outcome is held against the serial scan and the JAX rule on the tape
     as it stands; ``seen`` counts the violations by kind → (bits (B, N)
-    uint8, stats (B, 4) int32)."""
+    uint8, stats (B, 4) int32).  A wide code (30 or more state bits)
+    walks as the 64-bit instance does: tail shifts up to 63."""
     B, N, _ = m4.shape
     kb, tail_start = code.kbits, N - (code.k - 1)
+    tail_max = 63 if kb + 1 >= 31 else 31
     encmask = (1 << kb) - 1
     assert delta & (delta - 1) == 0
     p1 = (code.poly1 >> 1) & (encmask >> 1)
@@ -942,7 +944,7 @@ def _k4_warp_walk(m4, regs, code, delta, maxcycles, seen):
                 T[np_] = top
                 m = [int(v) for v in m4[b, np_ + 1]]
                 if np_ + 1 >= tail_start:
-                    bit = (tailbits >> min(max(N - np_ - 2, 0), 31)) & 1
+                    bit = (tailbits >> min(max(N - np_ - 2, 0), tail_max)) & 1
                     a0 = a1 = m[(bit * 3) ^ ls]
                 else:
                     a0, a1 = m[ls], m[3 ^ ls]
@@ -1050,6 +1052,110 @@ def test_k4_ballot_search_on_sparse_tapes(seed):
             assert got[:2] == _k4_max_rule(T, np_, t, tail_start, kb)
             deep += got[2] > 1
     assert deep > 0
+
+
+# ---------------------------------------------------------------- K4 wide
+
+WIDE = [CODES[n] for n in ("MCQLI32", "J50", "J60")]
+
+
+@pytest.mark.parametrize("N", [64, 1024, 4096, 5810, 5811, 8192])
+def test_k4_wide_plan_records_and_switch(N):
+    """The wide variant's plan: 24-byte records, a lane's metrics and
+    tape 16N + 24(N + 1) bytes rounded up to 16 (so every lane's metrics
+    stay 16-byte aligned); "warp" exactly where a lane fits (N <= 5810),
+    4-5 lanes a block at N = 1024, "thread" beyond, and pinning "warp"
+    there raises."""
+    code = CODES["J60"]
+    lane = fano_cuda.lane_bytes(N, fano_cuda.WIDE_RECORD_BYTES)
+    assert lane % 16 == 0 and 0 <= lane - (16 * N + 24 * (N + 1)) < 16
+    assert fano_cuda.lane_bytes(N, fano_cuda.RECORD_BYTES) == (2 * N + 1) * 16
+    plan = fano_cuda.fano_walk_plan(1000, N, code, 12,
+                                    rec_bytes=fano_cuda.WIDE_RECORD_BYTES)
+    fits = lane <= SMEM_MAX
+    assert fits == (N <= 5810)
+    assert plan["design"] == ("warp" if fits else "thread")
+    if fits:
+        assert plan["smem"] == plan["lanes"] * lane <= SMEM_MAX
+        assert plan["lanes"] == min(-(-1000 // 132), SMEM_MAX // lane, 32)
+        if N == 1024:
+            assert SMEM_MAX // lane == 5
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            fano_cuda.fano_walk_plan(8, N, code, 12, "warp",
+                                     rec_bytes=fano_cuda.WIDE_RECORD_BYTES)
+
+
+@pytest.mark.parametrize("code,rec_bytes,match", [
+    (CODES["MCQLI32"], 16, "state bits"),
+    (CODES["J60"], 16, "state bits"),
+    (CodeSpec("TESTK61", (1 << 60) | 1, (1 << 60) | 3, 61, 0, 0), 24,
+     "at most 60"),
+    (CODES["J50"], 32, "16 or 24"),
+])
+def test_k4_wide_plan_refusals(code, rec_bytes, match):
+    with pytest.raises(ValueError, match=match):
+        fano_cuda.fano_walk_plan(4, 1024, code, 12, rec_bytes=rec_bytes)
+
+
+@pytest.mark.parametrize("kb", [32, 50, 60])
+def test_k4_wide_tape_word(kb):
+    """numpy mirror of the wide record: {gamma, tm0, tm1, pad} int32 and
+    the 64-bit word (ibr << kb) | enc, 24 bytes; unpacking by a logical
+    shift and a kb-bit mask gives back enc and ibr at every kb, the
+    word's top bit stays clear (ibr <= 1, kb <= 60), and tail bit j of a
+    64-bit tail is one shift."""
+    rng = np.random.default_rng(kb)
+    rec = np.dtype([("g", "<i4"), ("tm0", "<i4"), ("tm1", "<i4"),
+                    ("pad", "<i4"), ("w", "<u8")], align=True)
+    assert rec.itemsize == fano_cuda.WIDE_RECORD_BYTES
+    assert rec.fields["w"][1] == 16
+    mask = np.uint64((1 << kb) - 1)
+    enc = rng.integers(0, 1 << kb, 1000, dtype=np.uint64)
+    enc[:2] = (0, (1 << kb) - 1)
+    ibr = rng.integers(0, 2, 1000).astype(np.uint64)
+    tape = np.zeros(1000, rec)
+    tape["g"] = rng.integers(-5000, 5000, 1000)
+    tape["w"] = (ibr << np.uint64(kb)) | enc
+    raw = np.frombuffer(tape.tobytes(), np.uint8).reshape(1000, 24)
+    w = raw[:, 16:].copy().view("<u8")[:, 0]
+    assert np.array_equal(w & mask, enc)
+    assert np.array_equal(w >> np.uint64(kb), ibr)
+    assert (w >> np.uint64(63) == 0).all()
+    assert np.array_equal(raw[:, :4].copy().view("<i4")[:, 0], tape["g"])
+    tail = int(rng.integers(0, 1 << 62)) | (1 << (kb - 2))
+    for j in range(kb - 1):
+        assert (np.uint64(tail) >> np.uint64(j)) & np.uint64(1) == (tail >> j) & 1
+
+
+@pytest.mark.parametrize("code", WIDE, ids=lambda c: c.name)
+def test_k4_wide_warp_walk_matches_the_wide_plain(code):
+    """The "warp" design's walk on the 64-bit word (the Python mirror,
+    ballot search against the serial scan and the JAX rule at every
+    violation) gives the wide plain version's bits and [np, gamma,
+    cycles, t]: the collapsed walk and the step-by-step one agree."""
+    rng = np.random.default_rng(code.k)
+    lanes, nbits, maxcycles = 6, 128, 4
+    tail = int(rng.integers(0, 1 << (code.k - 1)))
+    data = torch.as_tensor(rng.integers(0, 2, (lanes, nbits)))
+    for j in range(code.k - 1):
+        data[:, nbits - 1 - j] = (tail >> j) & 1
+    syms, _ = encode_bits(data, 5, code)
+    noise = torch.as_tensor(rng.normal(0, 80.0, syms.shape))
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise)
+                       + 128, 0, 255).to(torch.uint8)
+    mettab = torch.as_tensor(DecodeConfig().mettab())
+    m4, regs = _walk_inputs(soft, mettab, nbits, 5, tail, code, None)
+    assert regs.dtype == torch.int64
+    seen = dict(violations=0, np_below_32=0, in_tail=0, relax_top=0,
+                toggle_top=0, ballot=0, chunks=0)
+    bits, stats = _k4_warp_walk(m4.numpy(), regs.numpy(), code, 32, maxcycles,
+                                seen)
+    bits_p, stats_p = fano_cuda.fano_walk_wide_plain(m4, regs, code, 32,
+                                                     maxcycles)
+    assert np.array_equal(bits, bits_p.numpy())
+    assert np.array_equal(stats, stats_p.numpy())
+    assert seen["violations"] > 50 and seen["ballot"] > 0
 
 
 # ---------------------------------------------------------------- spin-down plan
