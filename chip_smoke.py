@@ -44,9 +44,16 @@ native/isee3_io.cpp; its encoder against the port's at MCQLI24 and J60,
 its Viterbi against K10 and K5/K6 on a noisy MCQLI-24 frame) and
 ``parallel/`` on logical shards of the card (phase 18: the clean block
 through ``receive_block_sharded`` on a (4, 1) mesh byte for byte against
-the unsharded buffer, ``decode_frame_sharded`` at MCQLI-24 on (1, 2) and
-(1, 4) meshes against ``decode_frame``, ``demod_time_sharded`` +
-``stitch_shards`` decoding the frames sent).  Last, after every timed block, the
+the unsharded buffer, on the default and the fused-scan pm backend,
+``decode_frame_sharded`` at MCQLI-24 on (1, 2) and (1, 4) meshes against
+``decode_frame``, ``demod_time_sharded`` + ``stitch_shards`` decoding
+the frames sent).
+Then the float64 pm branch (phase 19: the clean block through
+``receive_block`` with ``PMConfig(dtype=torch.float64)``, every lane
+walking K4: its frames those of the float32 run, no pm kernel launched
+(K1, K2, K8, K9), K3 and K4 launched; its baseband on four channels
+against the same on the CPU, and the float32 and float64 pm stages'
+times).  Last, after every timed block, the
 device time of kernels K1 (its search launch and spin-down apart), K2,
 K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
 checked on both designs ("cluster", one thread-block cluster per
@@ -2724,12 +2731,16 @@ def phase_parallel(dev, nsamples: int, nframes: int, cfg) -> dict:
     """Phase 18: parallel/ on logical shards of one card (a mesh whose
     devices repeat): the bench block's clean regime through
     receive_block_sharded over a (4, 1) mesh == receive_block_device's
-    buffer byte for byte; decode_frame_sharded at MCQLI-24, 1024 bits,
+    buffer byte for byte, on the default and the fused-scan pm backend,
+    with its time beside the unsharded block's and each shard's alone;
+    decode_frame_sharded at MCQLI-24, 1024 bits,
     B = 2 on (1, 2) and (1, 4) meshes == ops/viterbi.decode_frame; the
     timeshard tests' narrowband recording (complex IQ: the plain pm path,
     then K3) through demod_time_sharded + stitch_shards decodes the
     frames sent.  Returns the launches of the three paths (each counted
     from 0)."""
+    import dataclasses
+
     import torch
 
     from isee3_decoder_tpu_torch import _kernels
@@ -2789,9 +2800,24 @@ def phase_parallel(dev, nsamples: int, nframes: int, cfg) -> dict:
         f"{NCHAN} ch x {nframes} frames: buffer == unsharded "
         f"({buf_s.numel()} bytes); sharded {t_s * 1e3:.1f} / "
         f"{t_sb * 1e3:.1f} ms against unsharded {t_1 * 1e3:.1f} / "
-        f"{t_1b * 1e3:.1f} ms; per shard of {NCHAN // 4} ch "
+        f"{t_1b * 1e3:.1f} ms; per shard of {NCHAN // 4} ch alone "
         f"{'/'.join(f'{t * 1e3:.1f}' for t in shard_s)} ms; launches {la}")
-    del iq, buf_s, buf_1
+    # the same on the fused scan, one host read a shard's pm stage
+    fcfg = dataclasses.replace(cfg, pm_backend="fused_scan")
+    fbuf_1 = receive_block_device(iq, nframes, FRAMESYMBOLS, fcfg)
+    fbuf_s = receive_block_sharded(iq, nframes, fcfg, mesh4)
+    require(torch.equal(fbuf_s, fbuf_1),
+            "parallel: sharded fused-scan buffer != unsharded")
+    tf_1 = [timed_call(lambda: receive_block_device(
+        iq, nframes, FRAMESYMBOLS, fcfg))[1] for _ in range(2)]
+    tf_s = [timed_call(lambda: receive_block_sharded(
+        iq, nframes, fcfg, mesh4))[1] for _ in range(2)]
+    tf_shard = [timed_call(lambda b=b: receive_block_device(
+        b, nframes, FRAMESYMBOLS, fcfg))[1] for b in shard_channels(iq, mesh4)]
+    log(f"  parallel (a) on pm_backend=\"fused_scan\": buffer == unsharded; "
+        f"sharded {_ms(tf_s)} ms against unsharded {_ms(tf_1)} ms; per shard "
+        f"alone {_ms(tf_shard)} ms")
+    del iq, buf_s, buf_1, fbuf_s, fbuf_1
     torch.cuda.empty_cache()
 
     # (b) the state-sharded Viterbi at the mission code's full lattice
@@ -2863,6 +2889,85 @@ def phase_parallel(dev, nsamples: int, nframes: int, cfg) -> dict:
     log(f"phase 18 parallel: sharded buffer, sharded Viterbi and stitched "
         f"frames == unsharded ({time.perf_counter() - t0:.1f} s)")
     return total
+
+
+def phase_float64(dev, nsamples: int, nframes: int, pm, sym) -> dict:
+    """Phase 19: the float64 pm branch (the JAX package's C-matching
+    golden mode, plain torch in complex128 by the config's dtype) on the
+    clean bench block through receive_block, quicklook and QLEC off so
+    every lane walks K4: frames all good, all sent and those of the
+    float32 run on the same config; backend_used["pm"] "plain_f64"; K1,
+    K2, K8 and K9 launched 0 times, K3 and K4 more.  The float64 baseband
+    of four channels against the same on the CPU (<= 1 LSB), the count
+    of samples where the float32 and float64 basebands differ, and the
+    pm stage's ms in both precisions.  Returns the float64 run's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        PipelineConfig,
+        demod_to_symbols,
+        receive_block,
+    )
+
+    t0 = time.perf_counter()
+    walk = DecodeConfig(quicklook=False, qlec=False)
+    cfg32 = PipelineConfig(pm=pm, sym=sym, decode=walk)
+    cfg64 = PipelineConfig(pm=dataclasses.replace(pm, dtype=torch.float64),
+                           sym=sym, decode=walk)
+    frames, iq, _ = bench_block(dev, NCHAN, nsamples, NOISE_CLEAN, seed=0)
+    rec32, ss32 = receive_block(iq, nframes, cfg32)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    rec64, ss64 = receive_block(iq, nframes, cfg64)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    backends = dict(_kernels.backend_used)
+    good, matched = frame_stats(rec64, frames, NCHAN, nframes)
+    require(matched == rec64.good.size,
+            f"float64: {matched} of {rec64.good.size} frames good and sent")
+    for field in ("data", "good", "start_symbol"):
+        require(np.array_equal(getattr(rec64, field), getattr(rec32, field)),
+                f"float64: frames differ from the float32 run's in {field}")
+    require(np.array_equal(ss64, ss32), "float64: sync starts differ")
+    require(backends.get("pm") == "plain_f64",
+            f"float64: pm stage ran {backends.get('pm')!r}")
+    for k in ("pm_locked", "spin_down", "windowed_dft", "pm_scan"):
+        require(launches[k] == 0, f"float64: pm kernel {k} launched "
+                                  f"{launches[k]} times")
+    for k in ("prefix_sum", "fano_walk"):
+        require(launches[k] > 0, f"float64: kernel {k} never launched")
+
+    bb32 = demod_to_symbols(iq, cfg32)[1]
+    bb64 = demod_to_symbols(iq, cfg64)[1]
+    d32 = (bb64.to(torch.int32) - bb32.to(torch.int32)).abs()
+    n32, max32 = int((d32 > 0).sum()), int(d32.max())
+    del bb32, d32
+    bb_cpu = demod_to_symbols(iq[:4].cpu(), cfg64)[1]
+    dcpu = (bb64[:4].cpu().to(torch.int32) - bb_cpu.to(torch.int32)).abs()
+    ncpu, maxcpu = int((dcpu > 0).sum()), int(dcpu.max())
+    require(maxcpu <= 1, f"float64: card vs CPU baseband off by {maxcpu} LSB")
+    del bb64
+    st32 = [stage_ms(iq, nframes, cfg32)["pm_scan"] for _ in range(3)]
+    st64 = [stage_ms(iq, nframes, cfg64)["pm_scan"] for _ in range(3)]
+    log(f"  float64: {NCHAN} ch x {nframes} frames, good {good}/"
+        f"{rec64.good.size}, matched {matched}, == the float32 run's frames; "
+        f"decoders {decoder_mix(rec64)} (float32 {decoder_mix(rec32)}); "
+        f"launches {launches}; backend {backends}")
+    log(f"  float64 baseband: card vs CPU on 4 ch x {dcpu.shape[1]} samples: "
+        f"{ncpu} differ, max {maxcpu} LSB; float32 vs float64 on {NCHAN} ch: "
+        f"{n32} of {NCHAN * dcpu.shape[1]} samples differ, max {max32} LSB")
+    log(f"  float64 pm stage {'/'.join(f'{t:.3f}' for t in st64)} ms against "
+        f"float32 {'/'.join(f'{t:.3f}' for t in st32)} ms (stage_ms, 3 runs); "
+        f"card: {card_line()}")
+    log(f"phase 19 float64: frames == float32, no pm kernel, K3 and K4 ran "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del iq
+    return launches
 
 
 def main() -> int:
@@ -3062,12 +3167,14 @@ def main() -> int:
     for k, v in track_launches.items():
         launches[k] += v
 
-    # ---- phases 16-18: the wide Fano walk, the native golden library,
-    # parallel/ on logical shards (before phase 12 as well)
+    # ---- phases 16-19: the wide Fano walk, the native golden library,
+    # parallel/ on logical shards, the float64 pm branch (before phase 12
+    # as well)
     wide_launches, checks["fano_walk_wide"] = phase_wide_fano(dev)
     phase_native(dev)
     parallel_launches = phase_parallel(dev, nsamples, nframes, cfg)
-    for path_launches in (wide_launches, parallel_launches):
+    float64_launches = phase_float64(dev, nsamples, nframes, pm, sym)
+    for path_launches in (wide_launches, parallel_launches, float64_launches):
         for k, v in path_launches.items():
             launches[k] += v
     torch.cuda.empty_cache()

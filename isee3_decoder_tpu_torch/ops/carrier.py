@@ -3,8 +3,12 @@
 Per FFT-sized block: FFT carrier search (full passband when unlocked,
 only the window bins around the last lock when locked), Quinn's second
 estimator, one-pass five-moment spin-down with C/N0, and emission of the
-Q (data) axis as int16.  Float32 throughout (the JAX package's float64
-golden branch is not ported).
+Q (data) axis as int16.  Float32 on the kernels; a float64 config
+(``PMConfig(dtype=torch.float64)``, the JAX package's C-matching golden
+mode) runs its own plain branch, chosen by the dtype alone, as the JAX
+package's gates choose it: full FFT search every block, the exact
+two-pass spin-down, no kernel (``_kernels.backend_used["pm"]`` reads
+``"plain_f64"``).
 
 On raw int16 blocks — the recording format, and the receive chain's
 main path — a locked block runs entirely in kernel K1
@@ -30,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops.syncword import argmax_last
 
 
@@ -42,12 +47,18 @@ class PMConfig:
     search_width: float = 0.0  # ±Hz when locked; 0 disables windowing
     doppler_rate: float = 0.0  # Hz/s chirp
     cn0_threshold: float = 21.0  # dB-Hz lock threshold
-    #: working precision; only float32 is ported (the JAX package's
-    #: float64 branch serves C-matching golden runs)
+    #: working precision: float32 runs the kernels; float64 is the plain
+    #: C-matching golden branch
     dtype: torch.dtype = torch.float32
     #: windowed search when every channel is locked (skips the full
     #: FFT); False forces the reference's always-FFT behaviour
     fast_locked_search: bool = True
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(
+                f"PMConfig.dtype {self.dtype}: float32 (the kernels) or "
+                "float64 (the plain golden branch)")
 
     @property
     def fftsize(self) -> int:
@@ -58,13 +69,17 @@ class PMConfig:
     def actual_binsize(self) -> float:
         return self.samprate / self.fftsize
 
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch.complex128 if self.dtype == torch.float64 else torch.complex64
+
 
 class PMCarry(NamedTuple):
     """Streaming carry: the reference's cross-block globals
     (Carrier_search_freq, cn0 — pmdemod.c:37,63)."""
 
-    search_center: torch.Tensor  # (B,) float32 Hz
-    cn0: torch.Tensor  # (B,) float32 dB-Hz
+    search_center: torch.Tensor  # (B,) Hz, PMConfig.dtype
+    cn0: torch.Tensor  # (B,) dB-Hz, PMConfig.dtype
 
 
 class PMBlockOut(NamedTuple):
@@ -78,9 +93,9 @@ def init_carry(
     batch: int, cfg: PMConfig, start_freq: float = 0.0, device=None
 ) -> PMCarry:
     return PMCarry(
-        search_center=torch.full((batch,), start_freq, dtype=torch.float32,
+        search_center=torch.full((batch,), start_freq, dtype=cfg.dtype,
                                  device=device),
-        cn0=torch.full((batch,), -999.0, dtype=torch.float32, device=device),
+        cn0=torch.full((batch,), -999.0, dtype=cfg.dtype, device=device),
     )
 
 
@@ -99,7 +114,7 @@ def doppler_chirp(iq: torch.Tensor, cfg: PMConfig) -> torch.Tensor:
         return iq
     n = iq.shape[-1]
     drate = cfg.doppler_rate * 2 * np.pi / (cfg.samprate**2)
-    i = torch.arange(n, dtype=torch.float32, device=iq.device)
+    i = torch.arange(n, dtype=cfg.dtype, device=iq.device)
     phase = drate * (i * (i + 1) / 2)
     return iq * torch.polar(torch.ones_like(phase), -phase)
 
@@ -135,16 +150,17 @@ def _search_window(
 
 
 def full_spectrum(iq: torch.Tensor) -> torch.Tensor:
-    """(B, n) complex → (B, n) complex64 full DFT spectrum for the
-    unlocked carrier search (pmdemod.c:253)."""
-    return torch.fft.fft(iq.to(torch.complex64), dim=-1)
+    """(B, n) complex → (B, n) full DFT spectrum, in the input's
+    precision, for the unlocked carrier search (pmdemod.c:253)."""
+    return torch.fft.fft(iq, dim=-1)
 
 
 def find_carrier(
     spectrum: torch.Tensor, carry: PMCarry, cfg: PMConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Peak-energy carrier search + Quinn interpolation
-    (pmdemod.c:246-318) → (carrier_freq_hz float32, peak_bin)."""
+    (pmdemod.c:246-318) → (carrier_freq_hz in the spectrum's real
+    precision, peak_bin)."""
     B, n = spectrum.shape
     energy = spectrum.real**2 + spectrum.imag**2
     first, last = _search_window(carry.search_center, carry.cn0, cfg)
@@ -175,7 +191,7 @@ def _quinn_freq(sp, sn, sm, maxenergy, peak_bin, binsize: float,
     dm = am / (1 - am)
     d = (dp + dm) / 2 + _tau(dp * dp) - _tau(dm * dm)
     d = torch.where(maxenergy > 0, d, 0.0)
-    freq = binsize * (peak_bin.to(torch.float32) + d)
+    freq = binsize * (peak_bin.to(d.dtype) + d)
     return torch.where(freq > samprate / 2, freq - samprate, freq)
 
 
@@ -186,10 +202,12 @@ def _window_bins(cfg: PMConfig) -> int:
 
 
 def _fast_search_capable(cfg: PMConfig) -> bool:
-    """Static gate for the windowed locked-path search."""
+    """Static gate for the windowed locked-path search (kernels K1, K8,
+    K9 and the plain windowed DFT): float32 only, as the JAX package's."""
     n = cfg.fftsize
     return (
         cfg.search_width > 0
+        and cfg.dtype == torch.float32
         and n % 256 == 0
         and n >= 512
         and 256 * n < 2**31  # exact int32 phase arithmetic
@@ -299,31 +317,33 @@ def find_carrier_windowed_raw(
     return freq, peak
 
 
-def carrier_cycles(carrier_freq: torch.Tensor, samprate: float) -> torch.Tensor:
-    """(B,) Hz → (B,) float32 cycles/sample by a true IEEE division (a
-    Python-scalar divisor would let PyTorch multiply by its reciprocal
+def carrier_cycles(carrier_freq: torch.Tensor, samprate: float,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B,) Hz → (B,) cycles/sample in ``dtype`` by a true IEEE division
+    (a Python-scalar divisor would let PyTorch multiply by its reciprocal
     on the card, one ulp off the kernels' division — and one ulp of the
     phase step is tens of LSB of baseband by the end of a block)."""
-    fs = torch.tensor(samprate, dtype=torch.float32, device=carrier_freq.device)
-    return carrier_freq.to(torch.float32) / fs
+    fs = torch.tensor(samprate, dtype=dtype, device=carrier_freq.device)
+    return carrier_freq.to(dtype) / fs
 
 
 def _lo_ramp(carrier_freq: torch.Tensor, n: int, samprate: float,
-             extra_cycles: torch.Tensor | None = None) -> torch.Tensor:
-    """(B,) Hz → (B, n) complex64 LO exp(-2πi f t / fs).
+             extra_cycles: torch.Tensor | None = None,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B,) Hz → (B, n) LO exp(-2πi f t / fs), complex of ``dtype``.
 
-    Two-level range reduction keeps every float32 phase small: with
+    Two-level range reduction keeps every phase small: with
     i = 256·ihi + ilo, the per-256-sample phase is reduced mod one cycle
     (c256 = (256c) mod 1), so cyc = c256·ihi + c·ilo stays below ~384
     cycles instead of the ~1e4 a raw c·i reaches at n = 65536.
     ``extra_cycles`` (n,) adds a per-sample phase (the folded de-chirp)."""
-    c = carrier_cycles(carrier_freq, samprate)
+    c = carrier_cycles(carrier_freq, samprate, dtype)
     i = torch.arange(n, dtype=torch.int32, device=carrier_freq.device)
     if n % 256 != 0:  # tiny FFT sizes: direct reduced ramp
-        cyc = torch.remainder(c[:, None] * i.to(torch.float32)[None, :], 1.0)
+        cyc = torch.remainder(c[:, None] * i.to(dtype)[None, :], 1.0)
     else:
-        ihi = (i // 256).to(torch.float32)
-        ilo = (i % 256).to(torch.float32)
+        ihi = (i // 256).to(dtype)
+        ilo = (i % 256).to(dtype)
         c256 = torch.remainder(c * 256.0, 1.0)
         cyc = c256[:, None] * ihi[None, :] + c[:, None] * ilo[None, :]
     if extra_cycles is not None:
@@ -365,18 +385,34 @@ def spin_down(
     extra_cycles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Spin-down + C/N0 estimate (pmdemod.c:321-351) → (baseband complex
-    with the carrier on the I axis, carrier amplitude, cn0_db)."""
-    lo = _lo_ramp(carrier_freq, iq.shape[1], samprate, extra_cycles)
-    spun = iq.to(torch.complex64) * lo
-    amp, unit, cn0 = _moments_cn0(spun, samprate)
-    return spun * unit[:, None], amp, cn0
+    with the carrier on the I axis, carrier amplitude, cn0_db).  complex128
+    input takes the JAX package's exact two-pass form in float64 (the
+    golden branch), anything else the one-pass float32 moments."""
+    if iq.dtype != torch.complex128:
+        lo = _lo_ramp(carrier_freq, iq.shape[1], samprate, extra_cycles)
+        spun = iq.to(torch.complex64) * lo
+        amp, unit, cn0 = _moments_cn0(spun, samprate)
+        return spun * unit[:, None], amp, cn0
+    spun = iq * _lo_ramp(carrier_freq, iq.shape[1], samprate, extra_cycles,
+                         torch.float64)
+    dc = spun.mean(dim=1)
+    amp = dc.abs()
+    unit = torch.where(amp > 0, torch.conj(dc) / torch.where(amp > 0, amp, 1.0),
+                       1.0)
+    rotated = spun * unit[:, None]
+    var = ((rotated.real - amp[:, None]) ** 2).mean(dim=1)
+    cn0 = 10 * torch.log10(samprate * amp * amp / (2 * var))
+    return rotated, amp, cn0
 
 
 def emit_baseband(rotated: torch.Tensor) -> torch.Tensor:
     """Q axis, -3 dB headroom, C truncation toward zero
     (pmdemod.c:360-367) → int16, saturating as the JAX package's
-    conversion does (a clipped recording can exceed the int16 range)."""
-    q = torch.trunc(rotated.imag * np.float32(np.sqrt(0.5)))
+    conversion does (a clipped recording can exceed the int16 range).
+    The scale is float32 on a complex64 input, float64 on complex128."""
+    scale = (np.sqrt(0.5) if rotated.dtype == torch.complex128
+             else np.float32(np.sqrt(0.5)))
+    q = torch.trunc(rotated.imag * scale)
     return q.clamp(-32768.0, 32767.0).to(torch.int16)
 
 
@@ -395,13 +431,6 @@ def pack_raw(raw: torch.Tensor) -> torch.Tensor:
     return raw.view(torch.int32)
 
 
-def _check_dtype(cfg: PMConfig) -> None:
-    if cfg.dtype != torch.float32:
-        raise NotImplementedError(
-            f"PMConfig.dtype {cfg.dtype}: only float32 is ported"
-        )
-
-
 def _finish_block(carry: PMCarry, freq, baseband, cn0, cfg: PMConfig):
     locked = cn0 > cfg.cn0_threshold
     new_center = torch.where(locked, freq, carry.search_center)
@@ -415,9 +444,12 @@ def pm_demod_block(
 ) -> tuple[PMCarry, PMBlockOut]:
     """One pmdemod block step on (B, fftsize) complex IQ (the body of
     pmdemod.c:204-372), plain PyTorch: windowed search when every channel
-    is locked, full FFT search otherwise, then spin-down and emission."""
-    _check_dtype(cfg)
-    iq = doppler_chirp(iq.to(torch.complex64), cfg)
+    is locked, full FFT search otherwise, then spin-down and emission.
+    A float64 config computes in complex128 and always takes the full FFT
+    search (the JAX package's float64 branch)."""
+    if cfg.dtype == torch.float64:
+        _kernels.note_backend("pm", "plain_f64")
+    iq = doppler_chirp(iq.to(cfg.cdtype), cfg)
     if (cfg.fast_locked_search and _fast_search_capable(cfg)
             and _fast_search_ok(carry, cfg)):
         freq, _ = find_carrier_windowed(iq, carry, cfg)
@@ -443,10 +475,17 @@ def pm_demod_block_raw(
     FFT search on the converted block, then kernel K2 spins down and
     emits.  A configured Doppler rate folds its de-chirp into K1's and
     K2's mix angle.  ``out`` (B, fftsize) int16 receives the baseband in
-    place when given."""
+    place when given.  A float64 config takes no kernel: the block goes
+    through iq_from_interleaved to pm_demod_block in complex128, as the
+    JAX package's float64 scan does."""
     from isee3_decoder_tpu_torch.ops import carrier_cuda
 
-    _check_dtype(cfg)
+    if cfg.dtype == torch.float64:
+        carry, o = pm_demod_block(carry, iq_from_interleaved(raw, flip), cfg)
+        if out is None:
+            return carry, o
+        out.copy_(o.baseband)
+        return carry, o._replace(baseband=out)
     packed = pack_raw(raw)
     n = packed.shape[1]
     # de-chirp rate in cycles/sample², folded into the kernels' mix angle
@@ -517,13 +556,15 @@ class PMScanStats(NamedTuple):
 
 def _scan_fused_capable(cfg: PMConfig, n: int, T: int) -> bool:
     """Static gate for the one-launch pm scan (kernel K9): at least one
-    block after the cold start, no de-chirp (the kernel has none), the
-    windowed locked search, and blocks the TPU kernel's chunk divides."""
+    block after the cold start, no de-chirp (the kernel has none), float32,
+    the windowed locked search, and blocks the TPU kernel's chunk
+    divides."""
     from isee3_decoder_tpu_torch.ops import carrier_cuda
 
     return (
         T >= 2
         and cfg.doppler_rate == 0.0
+        and cfg.dtype == torch.float32
         and cfg.fast_locked_search
         and _fast_search_capable(cfg)
         and n % carrier_cuda.SCAN_CHUNK == 0
@@ -549,7 +590,6 @@ def pm_demod_scan_csum(
     runs again from ``carry`` as the block scan + kernel K3 — the JAX
     package's ``lax.cond``, here one host read per call.  Callers pass
     _scan_fused_capable."""
-    from isee3_decoder_tpu_torch import _kernels
     from isee3_decoder_tpu_torch.ops import carrier_cuda
     from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 

@@ -69,12 +69,12 @@ def pipeline_config(src) -> PipelineConfig:
 
 
 def pm_carry(src, device=None) -> PMCarry:
-    """A JAX PMCarry (or any pair of arrays) → float32 PMCarry."""
+    """A JAX PMCarry (or any pair of arrays) → PMCarry of the same dtype
+    (float32, or float64 from a float64 config's carry)."""
     return PMCarry(
         search_center=torch.as_tensor(np.array(src.search_center),
-                                      dtype=torch.float32, device=device),
-        cn0=torch.as_tensor(np.array(src.cn0), dtype=torch.float32,
-                            device=device),
+                                      device=device),
+        cn0=torch.as_tensor(np.array(src.cn0), device=device),
     )
 
 

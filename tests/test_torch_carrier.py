@@ -174,11 +174,3 @@ def test_pm_demod_block_raw_doppler_matches_jax(cn0):
     diff = np.abs(o_t.baseband.numpy().astype(np.int32)
                   - np.asarray(o_j.baseband, np.int32))
     assert diff.max() <= 1, diff.max()
-
-
-def test_float64_is_refused():
-    raw, _ = _signal(13)
-    carry = tc.init_carry(NCH, tc.PMConfig())
-    with pytest.raises(NotImplementedError, match="float32"):
-        tc.pm_demod_block_raw(carry, torch.from_numpy(raw),
-                              tc.PMConfig(samprate=32768.0, dtype=torch.float64))

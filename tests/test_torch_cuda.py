@@ -1406,3 +1406,47 @@ def test_fanotest_cli_on_the_card(dev):
     assert last.startswith("trials 32 ")
     assert int(last.split(" good ")[1].split()[0]) >= 30
     assert _kernels.LAUNCHES["fano_walk"] >= 1
+
+
+def test_float64_pm_branch_on_the_card_equals_the_cpu(dev):
+    """The float64 pm branch (plain torch in complex128: cuFFT search,
+    two-pass spin-down) on the card against the same on the CPU
+    (pocketfft): the baseband within 1 LSB, carrier and C/N0 within rtol
+    1e-9, locks exact; no pm kernel runs (K1, K2, K8, K9)."""
+    cfg = carrier.PMConfig(samprate=32768.0, binsize=4.0, search_width=100.0,
+                           dtype=torch.float64)
+    B, T = 5, 3
+    raw, _ = _raw(dev, B, cfg, seed=61, nblocks=T)
+    blocks = raw.reshape(B, T, 2 * cfg.fftsize)
+    _kernels.reset_launches()
+    c_d, o_d = carrier.pm_demod_scan(carrier.init_carry(B, cfg, device=dev),
+                                     blocks, cfg)
+    assert _kernels.backend_used.get("pm") == "plain_f64"
+    for k in ("pm_locked", "spin_down", "windowed_dft", "pm_scan"):
+        assert _kernels.LAUNCHES[k] == 0, k
+    c_h, o_h = carrier.pm_demod_scan(carrier.init_carry(B, cfg, device="cpu"),
+                                     blocks.cpu(), cfg)
+    assert o_d.carrier_freq.dtype == torch.float64
+    assert torch.equal(o_d.locked.cpu(), o_h.locked) and bool(o_h.locked[1:].all())
+    np.testing.assert_allclose(o_d.carrier_freq.cpu().numpy(),
+                               o_h.carrier_freq.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(o_d.cn0.cpu().numpy(), o_h.cn0.numpy(), rtol=1e-9)
+    diff = (o_d.baseband.cpu().to(torch.int32) - o_h.baseband.to(torch.int32)).abs()
+    print(f"float64 baseband samples that differ card vs CPU: "
+          f"{int((diff > 0).sum())} of {diff.numel()}")
+    assert int(diff.max()) <= 1
+
+
+def test_receive_block_sharded_on_logical_shards_of_the_card(dev):
+    """receive_block_sharded on [cuda:0] * 4 (each shard's kernels on the
+    card, one shard after another): the buffer is the unsharded one byte
+    for byte."""
+    from isee3_decoder_tpu_torch.models.pipeline import receive_block_device
+    from isee3_decoder_tpu_torch.parallel import receive_block_sharded
+
+    cfg = _stream_cfg()
+    iq = _stream_block(dev, 8, 6.5, 2500.0, seed=43)
+    want = receive_block_device(iq, 1, 2048, cfg)
+    got = receive_block_sharded(iq, 1, cfg, make_mesh(4, 1, devices=[dev] * 4))
+    assert got.device == want.device
+    assert torch.equal(got, want)

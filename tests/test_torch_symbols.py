@@ -105,3 +105,44 @@ def test_symdemod_scan_csum_soft_symbols_exact():
     _, out_t2 = tsd.symdemod_scan(torch.from_numpy(bb), tsym_cfg, nwin)
     _, out_j2 = jsd.symdemod_scan(jnp.asarray(bb), SYM, nwin)
     np.testing.assert_array_equal(out_t2.soft.numpy(), np.asarray(out_j2.soft))
+
+
+# (samprate, symrate, symbolclocks, window) → the JAX timesearch tier its
+# edge table takes (symbols.py:512-535): symbol groups, framed slices, or
+# the elementwise gather; the port computes every one as the gather
+TIER_CASES = {
+    "grouped": (32768.0, 512.0, 1, 0.5),
+    "grouped_c2": (10000.0, 333.3, 2, 0.25),
+    "framed": (30000.0, 2048.0, 1, 0.5),
+    "gather": (10000.0, 1024.0, 2, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(TIER_CASES))
+def test_timesearch_matches_every_jax_tier(case):
+    """The JAX package's grouped and framed timesearch tiers compute the
+    gather tier's function from the same prefix-sum entries; the port's
+    one formulation gives each tier's symbol phase exactly and its energy
+    within f32 summation order."""
+    fs, sr, clocks, window = TIER_CASES[case]
+    cfg = jsym.SymConfig(samprate=fs, symrate=sr, symbolclocks=clocks,
+                         window=window)
+    rel = jsym.search_edges(cfg.halfclock, cfg.nsymbols, cfg.symbolclocks)
+    groups = jsym._symbol_group_plan(rel, cfg.noffsets, cfg.symbolclocks)
+    framed = jsym._framing_plan(rel, cfg.noffsets) if groups is None else None
+    tier = ("grouped" if groups is not None
+            else "framed" if framed is not None else "gather")
+    assert tier == case.split("_")[0]
+    nsamples = int(rel[-1]) + 4 * cfg.noffsets + 200
+    bb = _baseband(7, 3, nsamples, cfg.symbolsamples / cfg.symbolclocks, 900.0)
+    csum = np.array(jsym.prefix_sum(jnp.asarray(bb), pad_to=nsamples + 1024))
+    first = np.array([cfg.noffsets, cfg.noffsets + 5, 2 * cfg.noffsets])
+    args = (cfg.halfclock, cfg.nsymbols, cfg.symbolclocks, cfg.noffsets)
+    ts_t = tsym.timesearch_from_csum(torch.from_numpy(csum),
+                                     torch.from_numpy(first), *args)
+    ts_j = jsym.timesearch_from_csum(jnp.asarray(csum), jnp.asarray(first),
+                                     *args)
+    np.testing.assert_array_equal(ts_t.symphase.numpy(),
+                                  np.asarray(ts_j.symphase))
+    np.testing.assert_allclose(ts_t.maxenergy.numpy(),
+                               np.asarray(ts_j.maxenergy), rtol=1e-6)
