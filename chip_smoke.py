@@ -53,7 +53,16 @@ Then the float64 pm branch (phase 19: the clean block through
 walking K4: its frames those of the float32 run, no pm kernel launched
 (K1, K2, K8, K9), K3 and K4 launched; its baseband on four channels
 against the same on the CPU, and the float32 and float64 pm stages'
-times).  Last, after every timed block, the
+times).  Then the reference's other two operational modes (phase 20:
+2048 bps, 4096 sym/s, at 128 channels clean and at the bench's mid
+Eb/N0, and 16 bps on the 1024 Hz subcarrier, 32 sym/s and 32 clocks a
+symbol, at 16 channels x 194 s, all at 250 ksps, through
+``receive_block`` and again through the plain path on the same IQ; K1,
+K2 and K3 against their plain versions at the modes' shapes, K3 on rows
+whose sums wrap int32; the symbol stage's ms and peak memory a channel
+beside the 512 bps bench's, the chunked timing search against one
+gather; the stage tools as processes in both modes).  Last, after
+every timed block, the
 device time of kernels K1 (its search launch and spin-down apart), K2,
 K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
 checked on both designs ("cluster", one thread-block cluster per
@@ -67,7 +76,8 @@ error, or when any check fails.  Imports no JAX.
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
 path (and of phases 13-14 alone, ``stream_cli_launches``, and of phase
-15, ``tracking_launches``; K4's wide variant, ``fano_walk_wide``, is a
+15, ``tracking_launches``, and of phase 20, ``modes_launches``; K4's
+wide variant, ``fano_walk_wide``, is a
 line of its own with phase 16's launches and per-code times under
 ``codes``), its error
 against the plain version, its time, the plain
@@ -532,20 +542,29 @@ def k1_inputs(dev, nchan: int = NCHAN):
     block (seed 5) of carriers 20 kHz + 137 Hz·i, each locked on its own
     carrier → (pm_locked_fused's positional arguments, the block as
     complex64 IQ, the carriers)."""
-    import torch
-
     from isee3_decoder_tpu_torch.ops import carrier
 
     cfg = carrier.PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0)
     _, raw, carriers = bench_block(dev, nchan, cfg.fftsize, NOISE_CLEAN,
                                    seed=5)
+    return (locked_k1_args(raw, carriers, cfg),
+            carrier.iq_from_interleaved(raw), carriers)
+
+
+def locked_k1_args(raw, carriers, cfg) -> tuple:
+    """pm_locked_fused's positional arguments for one pm block of raw IQ
+    (B, 2n) with every channel locked on its carrier under PMConfig
+    ``cfg``."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier
+
     carry = carrier.PMCarry(search_center=carriers,
                             cn0=torch.full_like(carriers, 60.0))
     require(carrier._fast_search_ok(carry, cfg), "K1 inputs not locked")
     first, last = carrier._search_window(carry.search_center, carry.cn0, cfg)
-    args = (carrier.pack_raw(raw), first - 1, last - first,
+    return (carrier.pack_raw(raw), first - 1, last - first,
             carrier._window_bins(cfg), cfg.samprate, cfg.actual_binsize)
-    return args, carrier.iq_from_interleaved(raw), carriers
 
 
 def k8_inputs(dev, nchan: int = NCHAN):
@@ -2970,6 +2989,519 @@ def phase_float64(dev, nsamples: int, nframes: int, pm, sym) -> dict:
     return launches
 
 
+# ---- phase 20: the reference's other two operational modes
+
+#: the operational modes of phase 20 (SURVEY.md:48-49): 2048 bps at 4096
+#: sym/s (0.5 s frames, the bench's 128 channels) and 16 bps on the 1024
+#: Hz subcarrier (32 sym/s, 32 clocks a symbol, 64 s frames; 16 channels,
+#: ~3.1 GB of int16 IQ on the card), each with the JAX package's own
+#: configs (tests/test_mode_2048bps.py, tests/test_mode16bps_and_fer.py)
+MODE_LEAD = 20
+FAST_SYMRATE = 4096.0
+FAST_FRAMES = 8
+# the bench's mid Eb/N0 (noise 50000 at 1024 sym/s) at 4x the symbol rate
+FAST_NOISE_MID = 25_000.0
+SLOW_SYMRATE = 32.0
+SLOW_CLOCKS = 32
+SLOW_NCHAN = 16
+SLOW_FRAMES = 3
+SLOW_MOD_INDEX = 0.7
+# the stage tools' 16 bps recording (-r 32768)
+SLOW_TOOL_RATE = 32_768.0
+
+
+def mode_symbols(frames: np.ndarray, nsym_total: int, seed: int) -> np.ndarray:
+    """The sent symbol stream: MODE_LEAD random symbols, the frames
+    encoded from the sync state, random filler up to nsym_total."""
+    from isee3_decoder_tpu_torch.utils.testsignal import frames_to_symbols
+
+    rng = np.random.default_rng(seed)
+    syms = frames_to_symbols(frames)
+    tail = max(nsym_total - MODE_LEAD - syms.size, 0)
+    return np.concatenate([rng.integers(0, 2, MODE_LEAD).astype(np.uint8),
+                           syms, rng.integers(0, 2, tail).astype(np.uint8)])
+
+
+def mode_capture(dev, syms: np.ndarray, nchan: int, nsamples: int,
+                 samprate: float, symrate: float, symbolclocks: int,
+                 mod_index: float, noise_std: float, seed: int,
+                 amplitude: float = 12_000.0, carrier0: float = 20_000.0):
+    """(nchan, 2·nsamples) int16 raw IQ on the card: the symbol stream
+    Manchester-coded on ``symbolclocks`` cycles of a subcarrier a symbol
+    (utils/testsignal.manchester_waveform's rule), phase-modulated on
+    carriers carrier0 + 137 Hz·i.  As edge_capture does, the carrier phase
+    runs in float64 cycles reduced mod 1 (a float32 ramp loses the phase
+    over 48 M samples); one channel at a time, so the float64 temporaries
+    stay a few GB."""
+    import torch
+
+    syms_d = torch.as_tensor(syms, device=dev)
+    out = torch.empty((nchan, 2 * nsamples), dtype=torch.int16, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ss = samprate / symrate
+    t = torch.arange(nsamples, dtype=torch.float64, device=dev)
+    pos = t / ss
+    idx = torch.clamp(torch.floor(pos).to(torch.int64), max=syms.size - 1)
+    half = torch.remainder((pos - idx) * symbolclocks, 1.0) >= 0.5
+    level = torch.where(syms_d[idx] > 0, 1.0, -1.0).to(torch.float64)
+    d = torch.where(half, level, -level)
+    del pos, idx, half, level
+    for c in range(nchan):
+        carrier = carrier0 + 137.0 * c
+        ph = 2 * np.pi * torch.remainder(t * (carrier / samprate), 1.0)
+        iq = amplitude * torch.polar(torch.ones_like(ph), ph + mod_index * d
+                                     + 0.7)
+        if noise_std > 0:
+            iq = iq + noise_std * torch.complex(
+                torch.randn(nsamples, generator=gen, device=dev,
+                            dtype=torch.float64),
+                torch.randn(nsamples, generator=gen, device=dev,
+                            dtype=torch.float64))
+        ri = torch.stack([iq.real, iq.imag], dim=-1).reshape(-1)
+        out[c] = torch.trunc(torch.clamp(ri, -32767.0, 32767.0)).to(torch.int16)
+        del ph, iq, ri
+    return out
+
+
+def check_mode_capture(dev) -> float:
+    """mode_capture against utils/testsignal.synthesize_iq (numpy, float64)
+    at noise 0 on 0.3 s of the 16 bps mode and of the 2048 bps mode: the
+    complex values within 1e-6 of the amplitude.  Returns the worst
+    difference (in units of the int16 scale)."""
+    from isee3_decoder_tpu_torch.utils.testsignal import (
+        random_frames,
+        synthesize_iq,
+    )
+
+    frames = random_frames(np.random.default_rng(3), 1)
+    worst = 0.0
+    for symrate, clocks in ((SLOW_SYMRATE, SLOW_CLOCKS), (FAST_SYMRATE, 1)):
+        n = int(0.3 * SAMPRATE)
+        syms = mode_symbols(frames, 0, seed=4)
+        want = synthesize_iq(frames, samprate=SAMPRATE, symrate=symrate,
+                             carrier=20_000.0, mod_index=SLOW_MOD_INDEX,
+                             symbolclocks=clocks, lead_symbols=MODE_LEAD,
+                             rng=np.random.default_rng(4))[:n]
+        got = mode_capture(dev, syms, 1, n, SAMPRATE, symrate, clocks,
+                           SLOW_MOD_INDEX, 0.0, seed=0)[0].cpu().numpy()
+        # the int16 wire form: truncation of values within 1e-6 of each
+        # other differs only where one sits on an integer
+        w = np.stack([want.real, want.imag], axis=-1).reshape(-1)
+        err = np.abs(got.astype(np.float64) - np.trunc(w))
+        worst = max(worst, float(err.max()))
+        require(float(err.max()) <= 1.0 and float((err > 0).mean()) < 1e-4,
+                f"mode capture: {symrate} sym/s differs from synthesize_iq "
+                f"(max {err.max()}, share {(err > 0).mean()})")
+    return worst
+
+
+def symbol_stage(csum, cfg, nwindows: int) -> tuple:
+    """symdemod_scan_csum once: (soft symbols, ms, the peak allocation
+    above what was allocated before it, in bytes)."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.symdemod import symdemod_scan_csum
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, out = symdemod_scan_csum(csum, cfg, nwindows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out.soft, ms, torch.cuda.max_memory_allocated() - base
+
+
+def mode_csum(iq, cfg):
+    """The pm stage and K3 of receive_block: (csum, the number of
+    windows, the (T, B, n) baseband)."""
+    from isee3_decoder_tpu_torch.models.symdemod import (
+        initial_firstsample,
+        window_samples,
+    )
+    from isee3_decoder_tpu_torch.ops.carrier import init_carry, pm_demod_scan
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
+
+    B, n = iq.shape[0], cfg.pm.fftsize
+    nblocks = iq.shape[1] // (2 * n)
+    blocks = iq[:, : nblocks * 2 * n].reshape(B, nblocks, 2 * n)
+    nwin = max((nblocks * n - initial_firstsample(cfg.sym))
+               // window_samples(cfg.sym) - 1, 0)
+    _, pm_out = pm_demod_scan(init_carry(B, cfg.pm, device=iq.device), blocks,
+                              cfg.pm)
+    return prefix_sum_blocks(pm_out.baseband, tail=1), nwin, pm_out.baseband
+
+
+def mode_kernel_checks(iq, cfg, label: str, bb) -> None:
+    """K1, K2 and K3 of the mode's chain against their plain versions at
+    its shapes: K1 on block 5 of the capture, locked on its carriers,
+    with the mode's search width; K2 on the cold-start block; K3 on the
+    mode's (T, B, n) baseband, exact."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops import carrier
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import (
+        prefix_sum_blocks,
+        prefix_sum_blocks_plain,
+    )
+
+    n = cfg.pm.fftsize
+    B = iq.shape[0]
+    carriers = torch.as_tensor(20_000.0 + 137.0 * np.arange(B),
+                               dtype=torch.float32, device=iq.device)
+    args = locked_k1_args(iq[:, 5 * 2 * n : 6 * 2 * n].contiguous(),
+                          carriers, cfg.pm)
+    check_k1(args, cfg.pm.binsize, "columns", f"{label} K1 at {B} x {n}, "
+             f"K = {args[3]}")
+    check_k2(carrier.pack_raw(iq[:, : 2 * n].contiguous()), carriers,
+             cfg.pm.samprate, f"{label} {B} x {n}")
+    got = prefix_sum_blocks(bb, tail=1)
+    want = prefix_sum_blocks_plain(bb, tail=1)
+    require(torch.equal(got, want), f"{label}: K3 differs from plain")
+    log(f"  {label} K3 at {tuple(bb.shape)}: == plain")
+
+
+def k3_wrap_check(dev, T: int, B: int, n: int) -> None:
+    """K3 at the 16 bps row length on rows whose running sum passes 2^31
+    (random non-negative int16, mean ~16,384): the kernel wraps as its
+    plain twin does, exactly."""
+    import torch
+
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import (
+        prefix_sum_blocks,
+        prefix_sum_blocks_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    blocks = torch.randint(0, 32767, (T, B, n), generator=gen, device=dev,
+                           dtype=torch.int16)
+    got = prefix_sum_blocks(blocks, tail=1)
+    want = prefix_sum_blocks_plain(blocks, tail=1)
+    total = int(blocks[:, 0].to(torch.int64).sum())
+    require(total > 2**31, "K3 wrap check: the row's sum stays below 2^31")
+    require(torch.equal(got, want), "K3 wrap check: kernel != plain")
+    log(f"  K3 at ({T}, {B}, {n}) on rows summing to {total:,} (past 2^31 "
+        f"{total // 2**31} times): kernel == plain, wrapped alike")
+    del blocks, got, want
+    torch.cuda.empty_cache()
+
+
+def timesearch_memory(csum, cfg) -> dict:
+    """One window's timing search on 2 channels chunked (SEARCH_ENTRIES)
+    and in one gather: equal bit for bit, and each one's peak allocation
+    above the prefix sum, in bytes."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.symdemod import initial_firstsample
+    from isee3_decoder_tpu_torch.ops import symbols as sym_ops
+
+    c2 = csum[:2]
+    out = {}
+    res = {}
+    for name, cap in (("chunked", sym_ops.SEARCH_ENTRIES), ("one_gather", None)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = sym_ops.timesearch_from_csum(
+            c2, initial_firstsample(cfg), cfg.halfclock, cfg.nsymbols,
+            cfg.symbolclocks, cfg.noffsets, max_entries=cap)
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_allocated() - base
+    require(torch.equal(res["chunked"].symphase, res["one_gather"].symphase)
+            and torch.equal(res["chunked"].maxenergy,
+                            res["one_gather"].maxenergy),
+            "timing search: chunked differs from one gather on the card")
+    return out
+
+
+def mode_cell(label: str, cfg, iq, frames, plain_channels: int,
+              plain_decode=None, reps: int = 5) -> tuple:
+    """One cell: receive_block with kernels (counted run, then reps - 1
+    more timed), the symbol stage's ms and peak allocation, the kernel
+    path against the plain path on ``plain_channels`` channels (with
+    ``plain_decode`` in place of the cell's decode configuration on both
+    sides when given: lower Fano caps keep the plain walk short).
+    Returns (launches of the counted run, the record, symbol-stage peak
+    bytes a channel, the csum)."""
+    import dataclasses
+
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.models.pipeline import (
+        demod_to_symbols,
+        receive_block,
+    )
+
+    t0 = time.perf_counter()
+    B = iq.shape[0]
+    soft = demod_to_symbols(iq, cfg)[0]  # warm-up; frames available
+    nframes = frames_available(soft)
+    require(nframes >= 1, f"{label}: no whole frame in the block")
+    times = []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for i in range(reps):
+        t1 = time.perf_counter()
+        rec, ss = receive_block(iq, nframes, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        if i == 0:
+            launches = dict(_kernels.LAUNCHES)
+            backends = dict(_kernels.backend_used)
+    good, matched = frame_stats(rec, frames, B, nframes)
+    csum, nwin, bb = mode_csum(iq, cfg)
+    soft_k, sym_ms, peak = symbol_stage(csum, cfg.sym, nwin)
+    require(torch.equal(soft_k.transpose(0, 1).reshape(B, -1), soft),
+            f"{label}: the symbol stage differs from demod_to_symbols'")
+    log(f"  {label}: {B} ch x {nframes} frames after the first sync, "
+        f"receive_block {_ms(times)} ms (counted run, then {reps - 1} more); "
+        f"good {good}/{rec.good.size}, matched {matched}; decoders "
+        f"{decoder_mix(rec)}; launches {launches}; backend {backends}")
+    log(f"  {label}: symbol stage {sym_ms:.3f} ms for {nwin} windows, peak "
+        f"{peak / 2**20:.1f} MiB above the prefix sum ({peak / B / 2**20:.2f} "
+        f"MiB a channel); card: {card_line()}")
+    require(matched == good, f"{label}: a good frame was not sent")
+    for stage in ("pm", "csum"):
+        require(backends.get(stage) == "cuda", f"{label}: {stage} off CUDA")
+    for k in ("pm_locked", "spin_down", "prefix_sum"):
+        require(launches[k] > 0, f"{label}: kernel {k} never launched")
+    mode_kernel_checks(iq, cfg, label, bb)
+    del bb
+    # the kernel path against the plain path on the same IQ
+    sub = iq[:plain_channels].contiguous()
+    pcfg = (cfg if plain_decode is None
+            else dataclasses.replace(cfg, decode=plain_decode))
+    rec_k, ss_k = receive_block(sub, nframes, pcfg)
+    soft_pk = demod_to_symbols(sub, pcfg)[0]
+    with _kernels.plain_reference():
+        rec_p, ss_p = receive_block(sub, nframes, pcfg)
+        soft_pp = demod_to_symbols(sub, pcfg)[0]
+    for field in ("data", "good", "decoder", "start_symbol"):
+        require(np.array_equal(getattr(rec_k, field), getattr(rec_p, field)),
+                f"{label}: kernel and plain paths differ in {field}")
+    require(np.array_equal(ss_k, ss_p), f"{label}: sync differs")
+    dsoft = (soft_pk.int() - soft_pp.int()).abs()
+    nsoft, maxsoft = int((dsoft > 0).sum()), int(dsoft.max())
+    # K1/K2 are within 1 LSB of their plain versions; a 1-LSB step in the
+    # baseband may move a soft symbol by one level, not more
+    require(maxsoft <= 1, f"{label}: soft symbols differ by {maxsoft}")
+    log(f"  {label}: kernel path == plain path on {plain_channels} ch "
+        f"(bytes, flags, labels, starts; decoders {decoder_mix(rec_k)}); soft "
+        f"symbols differ in {nsoft} of {soft_pk.numel()} by <= {maxsoft} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, rec, nframes, peak / B, csum
+
+
+def mode_tools(dev) -> dict:
+    """The stage tools as processes in both modes: a 10 s 2048 bps
+    recording through ``pmdemod -W 200 | symdemod -c 4096. -w 0.5 |
+    decode``, and a 16 bps recording at -r 32768 (3 frames after the
+    lead, sent at 32 sym/s on the measured clock, carrier 4 kHz) through
+    ``pmdemod -r 32768 -b 8 -W 100 | symdemod -r 32768 -c 32 | decode``
+    (its locked blocks search by K8, as phase 10's): every good frame a
+    sent one, one at least.  Returns the tools' launches."""
+    import shlex
+    import tempfile
+
+    from isee3_decoder_tpu_torch.config import ACTUALCLOCK, NOMINALCLOCK
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    frames = random_frames(np.random.default_rng(41), 20)
+    sent = {f.tobytes() for f in frames}
+    slow_rate = SLOW_SYMRATE * ACTUALCLOCK / NOMINALCLOCK
+    cases = {
+        "2048": (frames, SAMPRATE, FAST_SYMRATE, 1, 10.0, 20_000.0,
+                 "-q -W 200", "-q -c 4096. -w 0.5"),
+        "16": (frames[:SLOW_FRAMES], SLOW_TOOL_RATE, slow_rate, SLOW_CLOCKS,
+               (MODE_LEAD + SLOW_FRAMES * 2048) / slow_rate + 3.0, 4000.0,
+               "-q -r 32768 -b 8 -W 100", "-q -r 32768 -c 32"),
+    }
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, (fr, fs, symrate, clocks, secs, carrier0, pm_args,
+                   sym_args) in cases.items():
+            t0 = time.perf_counter()
+            n = int(secs * fs)
+            syms = mode_symbols(fr, int(n / (fs / symrate)) + 2, seed=42)
+            rec = os.path.join(tmp, f"mode{mode}.iq")
+            mode_capture(dev, syms, 1, n, fs, symrate, clocks,
+                         SLOW_MOD_INDEX if clocks > 1 else 1.1,
+                         NOISE_CLEAN, seed=43, carrier0=carrier0)[0].cpu(
+                         ).numpy().tofile(rec)
+            outs = {t: os.path.join(tmp, f"{t}{mode}.json")
+                    for t in ("pmdemod", "symdemod", "decode")}
+
+            def tool(name: str, args: str) -> str:
+                shim = shlex.quote(TOOL_SHIM.format(pkg=PKG, tool=name))
+                return f"{sys.executable} -c {shim} {outs[name]} {args}"
+
+            pipe = (f"set -o pipefail; {tool('pmdemod', f'{pm_args} {rec}')} "
+                    f"| {tool('symdemod', sym_args)} | {tool('decode', '')}")
+            r = subprocess.run(["bash", "-c", pipe], cwd=HERE,
+                               capture_output=True, text=True, timeout=300)
+            require(r.returncode == 0,
+                    f"{mode} bps tools failed: {r.stderr[-2000:]}")
+            decoded = parse_hex_frames(r.stdout)
+            good = [d for g, d in decoded if g]
+            require(good and all(d in sent for d in good),
+                    f"{mode} bps tools: good frames {len(good)}, not all "
+                    f"sent: {r.stdout[-1500:]}")
+            per_tool = {}
+            for name, path in outs.items():
+                with open(path) as f:
+                    counts = json.load(f)["launches"]
+                per_tool[name] = {k: v for k, v in counts.items() if v}
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            log(f"  {mode} bps tools: pmdemod {pm_args} | symdemod {sym_args}"
+                f" | decode on {secs:.1f} s at {fs:.0f} sps: {len(decoded)} "
+                f"frames, {len(good)} good, all sent; launches {per_tool} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def phase_modes(dev) -> dict:
+    """Phase 20: the reference's 2048 bps and 16 bps subcarrier modes
+    through receive_block at 250 ksps, IQ made on the card by
+    mode_capture (checked against utils/testsignal.synthesize_iq first):
+    2048 bps at 128 channels clean and at the bench's mid Eb/N0, 16 bps
+    at 16 channels clean; each against the plain path on the same IQ,
+    its kernels against their plain versions at its shapes, the timing
+    search's memory a channel beside the 512 bps bench's; then the stage
+    tools as processes in both modes.  Returns the launches of the
+    counted runs and the tools."""
+    import torch
+
+    from isee3_decoder_tpu_torch.models.decode import (
+        DECODER_FANO,
+        DECODER_VITERBI,
+        DecodeConfig,
+    )
+    from isee3_decoder_tpu_torch.models.pipeline import PipelineConfig
+    from isee3_decoder_tpu_torch.models.symdemod import window_samples
+    from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
+    from isee3_decoder_tpu_torch.ops.carrier import PMConfig
+    from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    t0 = time.perf_counter()
+    worst = check_mode_capture(dev)
+    log(f"  mode capture == synthesize_iq at noise 0 on 0.3 s of each mode "
+        f"(max {worst} LSB after truncation)")
+    launches: dict = {}
+
+    def add(path_launches):
+        for k, v in path_launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def nsamples_for(sym, nframes_tx: int, n: int) -> int:
+        # windows enough for the frames after the lead, one of slack, in
+        # whole pm blocks
+        need = -(-(MODE_LEAD + nframes_tx * 2048) // sym.nsymbols)
+        want = (need + 1) * window_samples(sym) + int(sym.symbolsamples / 2)
+        return -(-want // n) * n
+
+    # 512 bps (the bench): the symbol stage's peak a channel, on 16
+    # channels of random baseband, as the 16 bps cell's channel count
+    bench = SymConfig(samprate=SAMPRATE, symrate=SYMRATE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    bb = torch.randint(-3000, 3000, (1, SLOW_NCHAN, 3 * int(SAMPRATE)),
+                       generator=gen, device=dev, dtype=torch.int16)
+    csum = prefix_sum_blocks(bb, tail=1)
+    del bb
+    symbol_stage(csum, bench, 1)  # warm-up
+    _, ms512, peak512 = symbol_stage(csum, bench, 1)
+    ts512 = timesearch_memory(csum, bench)
+    del csum
+    log(f"  512 bps bench symbol stage on {SLOW_NCHAN} ch, 1 window: "
+        f"{ms512:.3f} ms, peak {peak512 / SLOW_NCHAN / 2**20:.2f} MiB a "
+        f"channel; one window's search on 2 ch: chunked {ts512['chunked'] / 2 / 2**20:.2f}"
+        f" MiB a channel, one gather {ts512['one_gather'] / 2 / 2**20:.2f}")
+
+    # ---- 2048 bps, 128 channels
+    fast = PipelineConfig(
+        pm=PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=200.0),
+        sym=SymConfig(samprate=SAMPRATE, symrate=FAST_SYMRATE, window=0.5),
+        decode=DecodeConfig())
+    frames = random_frames(np.random.default_rng(20), FAST_FRAMES)
+    n = nsamples_for(fast.sym, FAST_FRAMES, fast.pm.fftsize)
+    syms = mode_symbols(frames, int(n / fast.sym.symbolsamples) + 2, seed=20)
+    peaks = {}
+    for label, noise, seed in (("2048 bps clean", NOISE_CLEAN, 22),
+                               ("2048 bps mid", FAST_NOISE_MID, 23)):
+        iq = mode_capture(dev, syms, NCHAN, n, SAMPRATE, FAST_SYMRATE, 1, 1.1,
+                          noise, seed)
+        clean = noise == NOISE_CLEAN
+        cell, rec, nframes, peaks[label], csum = mode_cell(
+            label, fast, iq, frames, NCHAN if clean else 8,
+            None if clean else DecodeConfig(viterbi_enabled=False,
+                                            fano_maxcycles=40))
+        add(cell)
+        if clean:
+            require(int(rec.good.sum()) == rec.good.size
+                    and nframes == FAST_FRAMES - 1,
+                    f"2048 bps clean: {int(rec.good.sum())} of "
+                    f"{rec.good.size} frames, {nframes} a channel")
+            ts = timesearch_memory(csum, fast.sym)
+            log(f"  2048 bps search on 2 ch: chunked {ts['chunked'] / 2 / 2**20:.2f}"
+                f" MiB a channel, one gather {ts['one_gather'] / 2 / 2**20:.2f}")
+        else:
+            if (rec.decoder == DECODER_FANO).any():
+                require(cell["fano_walk"] > 0, f"{label}: K4 never launched")
+            if (rec.decoder == DECODER_VITERBI).any():
+                require(cell["viterbi_a"] > 0 and cell["viterbi_b"] > 0,
+                        f"{label}: K5/K6 never launched")
+                viterbi_lanes_check(iq, nframes, fast, rec, label)
+        del iq, csum
+        torch.cuda.empty_cache()
+
+    # ---- 16 bps on the subcarrier, 16 channels
+    slow = PipelineConfig(
+        pm=PMConfig(samprate=SAMPRATE, binsize=4.0, search_width=100.0),
+        sym=SymConfig(samprate=SAMPRATE, symrate=SLOW_SYMRATE,
+                      symbolclocks=SLOW_CLOCKS),
+        decode=DecodeConfig())
+    frames = random_frames(np.random.default_rng(24), SLOW_FRAMES)
+    n = nsamples_for(slow.sym, SLOW_FRAMES, slow.pm.fftsize)
+    syms = mode_symbols(frames, int(n / slow.sym.symbolsamples) + 2, seed=24)
+    iq = mode_capture(dev, syms, SLOW_NCHAN, n, SAMPRATE, SLOW_SYMRATE,
+                      SLOW_CLOCKS, SLOW_MOD_INDEX, NOISE_CLEAN, seed=25)
+    log(f"  16 bps capture: {SLOW_NCHAN} ch x {n / SAMPRATE:.1f} s "
+        f"({iq.numel() * 2 / 2**30:.2f} GiB int16 IQ)")
+    label = "16 bps clean"
+    cell, rec, nframes, peaks[label], csum = mode_cell(
+        label, slow, iq, frames, SLOW_NCHAN, reps=2)
+    add(cell)
+    require(int(rec.good.sum()) == rec.good.size
+            and nframes == SLOW_FRAMES - 1,
+            f"16 bps: {int(rec.good.sum())} of {rec.good.size} frames, "
+            f"{nframes} a channel")
+    ts = timesearch_memory(csum, slow.sym)
+    log(f"  16 bps search on 2 ch: chunked {ts['chunked'] / 2 / 2**20:.2f} "
+        f"MiB a channel, one gather {ts['one_gather'] / 2 / 2**20:.2f} "
+        f"({ts['one_gather'] / ts['chunked']:.1f}x)")
+    require(ts["chunked"] <= 2 * ts512["chunked"]
+            and peaks[label] <= 2 * peak512 / SLOW_NCHAN,
+            "16 bps: the timing search's working set a channel is over 2x "
+            "the 512 bps one's")
+    del iq, csum
+    torch.cuda.empty_cache()
+    k3_wrap_check(dev, n // slow.pm.fftsize, SLOW_NCHAN, slow.pm.fftsize)
+
+    add(mode_tools(dev))
+    log(f"phase 20 modes: 2048 bps (128 ch, clean and mid) and 16 bps "
+        f"subcarrier (16 ch) == plain path, every good frame sent; symbol "
+        f"stage peak a channel "
+        f"{ {k: round(v / 2**20, 2) for k, v in peaks.items()} } MiB against "
+        f"512 bps {peak512 / SLOW_NCHAN / 2**20:.2f}; launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: package {PKG}/ not found beside this script",
@@ -3078,6 +3610,15 @@ def main() -> int:
             "mid regime: K4 did not walk by its warp design")
     require(backends_mid.get("spin") == "cluster",
             "mid regime: the spin-down did not run on its cluster design")
+    # the same block with the default DecodeConfig() (QLEC labels on): the
+    # strict run's frames, only the labels may differ
+    rec_q, _ = receive_block(iq, nframes, PipelineConfig(
+        pm=pm, sym=sym, decode=DecodeConfig()))
+    for field in ("data", "good", "start_symbol"):
+        require(np.array_equal(getattr(rec_q, field), getattr(rec, field)),
+                f"mid regime, QLEC on: differs from strict labels in {field}")
+    log(f"  mid with DecodeConfig() (QLEC on): frames == strict_labels()'s; "
+        f"decoders {decoder_mix(rec_q)} (strict {decoder_mix(rec)})")
     profile_block(iq, nframes, mid, "mid")
     del iq
 
@@ -3179,6 +3720,13 @@ def main() -> int:
             launches[k] += v
     torch.cuda.empty_cache()
 
+    # ---- phase 20: the 2048 bps and 16 bps subcarrier modes (before
+    # phase 12 as well)
+    modes_launches = phase_modes(dev)
+    for k, v in modes_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     # ---- phase 12: device times under torch.profiler, after every timed run
     profile_kernels(dev, checks, max(int((rec_thr.decoder ==
                                           DECODER_VITERBI).sum()), 1))
@@ -3233,6 +3781,7 @@ def main() -> int:
             "launches": launches[name],
             "stream_cli_launches": new_launches.get(name, 0),
             "tracking_launches": track_launches.get(name, 0),
+            "modes_launches": modes_launches.get(name, 0),
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

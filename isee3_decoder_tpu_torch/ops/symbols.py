@@ -13,7 +13,11 @@ The JAX package evaluates the offset sweep through grouped and framed
 static-slice plans built around TPU gather costs; here the plain gather
 form (its ``_esum_gather``) serves every mode.  All three read the same
 prefix-sum entries, and the float64 sums of integer squares are exact,
-so energies and decisions are identical.
+so energies and decisions are identical.  The gather runs over chunks of
+the offset axis of at most ``SEARCH_ENTRIES`` entries a channel (one
+chunk at 512 and 2048 bps; 32 in the 16 bps subcarrier mode, whose one
+gather would hold 32 times that); the result does not depend on the
+chunks.
 
 Reads past the end of the prefix sum are clamped to its last column,
 which holds the grand total (prefix_cuda.prefix_sum_blocks(tail=1) /
@@ -73,6 +77,11 @@ class SymConfig:
 #: grouped plans read beyond the last edge plus 8 — here 8, since the
 #: gather form reads no further than the last edge
 SEARCH_PAD = 8
+
+#: prefix-sum entries a channel that one chunk of the timing search
+#: gathers: a whole 1 s window's sweep at 1024 sym/s and 250 ksps (245
+#: offsets x 2049 edges)
+SEARCH_ENTRIES = 245 * 2049
 
 #: headroom on the JAX package's widened offset axis for per-channel start
 #: spread (its symbols.py:274); here it only enters the clock trackers'
@@ -195,12 +204,19 @@ def timesearch_from_csum(
     symbolclocks: int,
     noffsets: int,
     fill: bool = False,
+    max_entries: int | None = SEARCH_ENTRIES,
 ) -> TimeSearchResult:
     """Full symbol-phase search over ±half a symbol (timesearch,
     symdemod.c:260-335) against a prefix sum.  Edges are firstsample +
     offset + nearbyint(m*halfclock) — the reference's *relative*
     rounding; the strict '>' comparison keeps the earliest maximal
-    offset (symdemod.c:328-332).  ``fill`` as in integrate_from_csum."""
+    offset (symdemod.c:328-332).  ``fill`` as in integrate_from_csum.
+
+    The offsets go in chunks whose gather holds at most ``max_entries``
+    prefix-sum entries a channel (None: one chunk); every offset's
+    energy is the same float64 sum over its symbols whatever the chunk,
+    and the argmax runs over all offsets at once, so the result does not
+    depend on the chunking."""
     B = csum.shape[0]
     dev = csum.device
     half = noffsets // 2
@@ -208,13 +224,23 @@ def timesearch_from_csum(
     offsets = torch.arange(-half, noffsets - half, dtype=torch.int64, device=dev)
     rel = torch.as_tensor(search_edges(halfclock, nsymbols, symbolclocks),
                           device=dev)
-    abs_edges = first[:, None, None] + offsets[None, :, None] + rel[None, None, :]
-    # (B, noffsets, nedges) int32
-    g = (take_fill if fill else _gather_clamped)(csum, abs_edges)
-    seg = (g[..., 1:] - g[..., :-1]).reshape(B, noffsets, nsymbols,
-                                              symbolclocks, 2)
-    integ = (seg[..., 1] - seg[..., 0]).sum(dim=-1, dtype=torch.int32)
-    energy = (integ.to(torch.float64) ** 2).sum(dim=-1) / nsymbols
+    step = noffsets if max_entries is None else max(max_entries // rel.numel(), 1)
+    gather = take_fill if fill else _gather_clamped
+    parts = []
+    for o0 in range(0, noffsets, step):
+        offs = offsets[o0 : o0 + step]
+        abs_edges = first[:, None, None] + offs[None, :, None] + rel[None, None, :]
+        # (B, chunk, nedges) int32; each buffer goes before the next is
+        # made, so one chunk's peak is what max_entries bounds
+        g = gather(csum, abs_edges)
+        del abs_edges
+        seg = (g[..., 1:] - g[..., :-1]).reshape(B, offs.numel(), nsymbols,
+                                                  symbolclocks, 2)
+        del g
+        integ = (seg[..., 1] - seg[..., 0]).sum(dim=-1, dtype=torch.int32)
+        del seg
+        parts.append((integ.to(torch.float64) ** 2).sum(dim=-1))
+    energy = torch.cat(parts, dim=1) / nsymbols
     best = argmax_first(energy, dim=-1)
     return TimeSearchResult(
         symphase=offsets[best],

@@ -146,3 +146,48 @@ def test_timesearch_matches_every_jax_tier(case):
                                   np.asarray(ts_j.symphase))
     np.testing.assert_allclose(ts_t.maxenergy.numpy(),
                                np.asarray(ts_j.maxenergy), rtol=1e-6)
+
+
+# the three operational modes at 250 ksps (SURVEY.md:48-49): 512 bps
+# (245 offsets x 2049 edges a channel, one chunk), 2048 bps (61 x 8193,
+# one chunk) and 16 bps on the 1024 Hz subcarrier (7813 x 2049: 32
+# chunks of 245 offsets, the last one short)
+MODE_SHAPES = {
+    "512bps": (1024.0, 1),
+    "2048bps": (4096.0, 1),
+    "16bps_subcarrier": (32.0, 32),
+}
+
+
+@pytest.mark.parametrize("fill", [False, True])
+@pytest.mark.parametrize("mode", list(MODE_SHAPES))
+def test_timesearch_chunked_equals_one_gather(mode, fill):
+    """The offset sweep in chunks of at most SEARCH_ENTRIES prefix-sum
+    entries a channel gives the one-gather result bit for bit: symphase,
+    maxenergy and the earliest maximum where offsets tie across chunk
+    borders (channel 1's baseband is all zeros, so every offset ties).
+    A smaller chunk (7 offsets) cuts the 512 and 2048 bps sweeps, which
+    SEARCH_ENTRIES leaves whole.
+    ``fill`` reads as the trackers do: channel 0 starts so late that its
+    last edges read past the prefix sum (INT32_MIN fills)."""
+    symrate, clocks = MODE_SHAPES[mode]
+    cfg = tsym.SymConfig(samprate=250_000.0, symrate=symrate,
+                         symbolclocks=clocks)
+    nsamples = 250_000 + 2 * cfg.noffsets
+    bb = _baseband(11, 2, nsamples, cfg.symbolsamples / clocks, 900.0)
+    bb[1] = 0
+    csum = tsym.prefix_sum(torch.from_numpy(bb), pad_to=nsamples + 8)
+    late = nsamples - 250_000 + cfg.noffsets // 2 if fill else cfg.noffsets
+    first = torch.tensor([late, cfg.noffsets])
+    args = (csum, first, cfg.halfclock, cfg.nsymbols, clocks, cfg.noffsets)
+    nedges = 2 * clocks * cfg.nsymbols + 1
+    want = tsym.timesearch_from_csum(*args, fill=fill, max_entries=None)
+    assert int(want.symphase[1]) == -(cfg.noffsets // 2)
+    whole = tsym.SEARCH_ENTRIES >= cfg.noffsets * nedges
+    for max_entries in (tsym.SEARCH_ENTRIES,) + ((7 * nedges,) if whole else ()):
+        got = tsym.timesearch_from_csum(*args, fill=fill,
+                                        max_entries=max_entries)
+        assert torch.equal(got.symphase, want.symphase)
+        assert torch.equal(got.maxenergy, want.maxenergy)
+    if not whole:  # 16 bps: 32 chunks
+        assert -(-cfg.noffsets // (tsym.SEARCH_ENTRIES // nedges)) == 32
