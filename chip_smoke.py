@@ -54,14 +54,22 @@ walking K4: its frames those of the float32 run, no pm kernel launched
 (K1, K2, K8, K9), K3 and K4 launched; its baseband on four channels
 against the same on the CPU, and the float32 and float64 pm stages'
 times).  Then the reference's other two operational modes (phase 20:
-2048 bps, 4096 sym/s, at 128 channels clean and at the bench's mid
-Eb/N0, and 16 bps on the 1024 Hz subcarrier, 32 sym/s and 32 clocks a
-symbol, at 16 channels x 194 s, all at 250 ksps, through
+2048 bps, 4096 sym/s, at 128 channels clean, at the bench's mid Eb/N0
+and at its threshold Eb/N0 (the Viterbi fallback), and 16 bps on the
+1024 Hz subcarrier, 32 sym/s and 32 clocks a symbol, at 16 channels x
+194 s clean and below the clean signal (where a whole symbol window may
+come out inverted and lanes reach Fano), all at 250 ksps, through
 ``receive_block`` and again through the plain path on the same IQ; K1,
 K2 and K3 against their plain versions at the modes' shapes, K3 on rows
 whose sums wrap int32; the symbol stage's ms and peak memory a channel
 beside the 512 bps bench's, the chunked timing search against one
-gather; the stage tools as processes in both modes).  Last, after
+gather; the batched clock tracker on 16 channels sent at 32 sym/s on
+the measured clock, its window-start search chunked against one
+gather; the stage tools as processes in both modes).  Then the JAX
+suite's channel statistics on the port's own channel (phase 21: the
+hard symbol error rate against theory, the MCQLI-24 Fano operating
+point, the FER sweep with both Viterbi decoders on the frames Fano
+deleted, K4 against its plain walk on 16 lanes).  Last, after
 every timed block, the
 device time of kernels K1 (its search launch and spin-down apart), K2,
 K8, K5, K6, K9 and K4 under torch.profiler (phase 12).  K2 and K1's spin-down are
@@ -76,7 +84,8 @@ error, or when any check fails.  Imports no JAX.
 Output, in order: one line per phase; the card's name and power limit
 (nvidia-smi); one JSON line with every kernel's launches on the main
 path (and of phases 13-14 alone, ``stream_cli_launches``, and of phase
-15, ``tracking_launches``, and of phase 20, ``modes_launches``; K4's
+15, ``tracking_launches``, of phase 20, ``modes_launches``, and of
+phase 21, ``stats_launches``; K4's
 wide variant, ``fano_walk_wide``, is a
 line of its own with phase 16's launches and per-code times under
 ``codes``), its error
@@ -1531,11 +1540,13 @@ def phase_narrowband(dev, nchan: int = NCHAN):
     return launches
 
 
-def viterbi_lanes_check(iq, nframes: int, cfg, rec, label: str) -> int:
-    """Up to 2 of a block's Viterbi lanes again through the decode
-    stage's Viterbi decoder (``cfg.decode.viterbi_backend``), with the
-    kernels and under plain_reference(): the bits must be equal.
-    Returns the number of lanes checked."""
+def viterbi_lanes_check(iq, nframes: int, cfg, rec, label: str,
+                        lanes=None) -> int:
+    """Up to 2 of a block's Viterbi lanes (or the given ``lanes``) again
+    through the decode stage's Viterbi decoder
+    (``cfg.decode.viterbi_backend``), with the kernels and under
+    plain_reference(): the bits must be equal.  Returns the number of
+    lanes checked."""
     import torch
 
     from isee3_decoder_tpu_torch import _kernels
@@ -1547,7 +1558,8 @@ def viterbi_lanes_check(iq, nframes: int, cfg, rec, label: str) -> int:
     from isee3_decoder_tpu_torch.models.pipeline import receive_block_device_soft
 
     _, soft = receive_block_device_soft(iq, nframes, FRAMESYMBOLS, cfg)
-    lanes = np.nonzero(rec.decoder == DECODER_VITERBI)[0][:2]
+    if lanes is None:
+        lanes = np.nonzero(rec.decoder == DECODER_VITERBI)[0][:2]
     fsyms = torch.stack([soft[lane // nframes, s : s + FRAMESYMBOLS]
                          for lane, s in zip(lanes, rec.start_symbol[lanes])])
     bits_k = _viterbi_decode(fsyms, cfg.decode)
@@ -3001,6 +3013,16 @@ FAST_SYMRATE = 4096.0
 FAST_FRAMES = 8
 # the bench's mid Eb/N0 (noise 50000 at 1024 sym/s) at 4x the symbol rate
 FAST_NOISE_MID = 25_000.0
+# 2048 bps at threshold: the bench's threshold Eb/N0 (noise 110,000 at
+# amplitude 12,000) at 4x the symbol rate, noise 13,750 at amplitude
+# 3000 (Eb/N0 ≈ 3.6 dB by (A·sin 1.1)^2 · 61 / σ^2), decoded all 896
+# lanes by Fano on the card: the 512 bps block's carrier, 6 dB weaker
+# against its noise, is what sends its lanes to Viterbi.  Noise 10,000 at
+# amplitude 2000 is Eb/N0 ≈ 2.9 dB, near the ~2.5 dB Fano threshold, with
+# 32,767 at 3.3 sigma (at 11,000, 2.1 dB, the fallback took 126 lanes
+# and 4 of its frames passed the syncword with payload errors)
+FAST_THRESHOLD_AMPLITUDE = 2000.0
+FAST_NOISE_THRESHOLD = 10_000.0
 SLOW_SYMRATE = 32.0
 SLOW_CLOCKS = 32
 SLOW_NCHAN = 16
@@ -3008,6 +3030,13 @@ SLOW_FRAMES = 3
 SLOW_MOD_INDEX = 0.7
 # the stage tools' 16 bps recording (-r 32768)
 SLOW_TOOL_RATE = 32_768.0
+# 16 bps below the clean signal: amplitude 900 keeps the noise inside
+# int16 (32,767 is 3.5 sigma); noise 9400 there is Es/N0 (900·sin 0.7)^2
+# · 7812.5 / (2 · 9400^2) ≈ 14.9, as noise 17,000 at amplitude 9000 and
+# 8192 sps, where tools/inversion_sweep.py's CPU sweep found inverted
+# windows in every seed
+SLOW_NOISY_AMPLITUDE = 900.0
+SLOW_NOISE_NOISY = 9400.0
 
 
 def mode_symbols(frames: np.ndarray, nsym_total: int, seed: int) -> np.ndarray:
@@ -3217,14 +3246,16 @@ def timesearch_memory(csum, cfg) -> dict:
 
 
 def mode_cell(label: str, cfg, iq, frames, plain_channels: int,
-              plain_decode=None, reps: int = 5) -> tuple:
+              plain_decode=None, reps: int = 5, all_sent: bool = True) -> tuple:
     """One cell: receive_block with kernels (counted run, then reps - 1
     more timed), the symbol stage's ms and peak allocation, the kernel
     path against the plain path on ``plain_channels`` channels (with
     ``plain_decode`` in place of the cell's decode configuration on both
-    sides when given: lower Fano caps keep the plain walk short).
-    Returns (launches of the counted run, the record, symbol-stage peak
-    bytes a channel, the csum)."""
+    sides when given: lower Fano caps keep the plain walk short).  With
+    ``all_sent`` False the caller checks which good frames were sent.
+    Returns (launches of the counted run, the record, the frames a
+    channel, symbol-stage peak bytes a channel, the csum, the soft
+    symbols)."""
     import dataclasses
 
     import torch
@@ -3263,7 +3294,8 @@ def mode_cell(label: str, cfg, iq, frames, plain_channels: int,
     log(f"  {label}: symbol stage {sym_ms:.3f} ms for {nwin} windows, peak "
         f"{peak / 2**20:.1f} MiB above the prefix sum ({peak / B / 2**20:.2f} "
         f"MiB a channel); card: {card_line()}")
-    require(matched == good, f"{label}: a good frame was not sent")
+    if all_sent:
+        require(matched == good, f"{label}: a good frame was not sent")
     for stage in ("pm", "csum"):
         require(backends.get(stage) == "cuda", f"{label}: {stage} off CUDA")
     for k in ("pm_locked", "spin_down", "prefix_sum"):
@@ -3292,7 +3324,27 @@ def mode_cell(label: str, cfg, iq, frames, plain_channels: int,
         f"(bytes, flags, labels, starts; decoders {decoder_mix(rec_k)}); soft "
         f"symbols differ in {nsoft} of {soft_pk.numel()} by <= {maxsoft} "
         f"({time.perf_counter() - t0:.1f} s)")
-    return launches, rec, nframes, peak / B, csum
+    return launches, rec, nframes, peak / B, csum, soft
+
+
+def inverted_windows(soft, syms: np.ndarray, nsym: int) -> tuple:
+    """Hard decisions (soft > 128) of a (B, S) soft-symbol tensor against
+    the sent symbol stream, soft symbol i against sent symbol i + offset
+    for the offset in (-1, 0, 1) that agrees best on the channel (the
+    first window's search may start a whole symbol early or late), by
+    symdemod window of ``nsym`` symbols: (per channel, the windows with
+    more than half their symbols wrong, i.e. inverted; per channel, the
+    wrong symbols outside them)."""
+    hard = (soft > 128).cpu().numpy().astype(np.uint8)
+    n = (min(hard.shape[1], syms.size) - 1) // nsym * nsym
+    inv, scattered = [], []
+    for row in hard:
+        per_win = min(
+            ((row[:n] != np.roll(syms, -off)[:n]).reshape(-1, nsym).sum(-1)
+             for off in (0, -1, 1)), key=lambda w: int(w.sum()))
+        inv.append(np.nonzero(2 * per_win > nsym)[0].tolist())
+        scattered.append(int(per_win[2 * per_win <= nsym].sum()))
+    return inv, scattered
 
 
 def mode_tools(dev) -> dict:
@@ -3363,6 +3415,154 @@ def mode_tools(dev) -> dict:
     return total
 
 
+def mode_tracked(dev, slow, n: int, ts512: dict, ts16: dict) -> dict:
+    """The batched tracker in the 16 bps mode at 250 ksps: 16 channels
+    sent at 32 sym/s on the measured spacecraft clock (32 x 1024.545 /
+    1024), their baseband demodulated untracked (symdemod_scan_csum) and
+    by symdemod_tracked_batched, from the nominal 32.0 and from the
+    measured clock (``symdemod -c 32``'s start), all four decoded by
+    decode_stream.  Every good frame must be a sent one, and from the
+    measured clock every frame after the first sync must decode tracked;
+    from 32.0 the frames are counted.  The tracked window-start search
+    chunked must equal one gather, its peak a channel within 2x the 512
+    bps search's (``ts512``; ``ts16`` is the untracked 16 bps search's);
+    2 channels over 8 windows equal their plain_reference() run.  Returns
+    the launches (pm stage, K3 three times, the decodes)."""
+    import dataclasses
+
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import ACTUALCLOCK, NOMINALCLOCK
+    from isee3_decoder_tpu_torch.models import symdemod as sd
+    from isee3_decoder_tpu_torch.models.decode import DecodeConfig, decode_stream
+    from isee3_decoder_tpu_torch.models.symdemod_tracked import (
+        build_track_tables,
+        device_tables,
+        symdemod_tracked_batched,
+        window_start_energies,
+    )
+    from isee3_decoder_tpu_torch.ops import symbols as sym_ops
+    from isee3_decoder_tpu_torch.utils.devicesignal import random_frames
+
+    t0 = time.perf_counter()
+    label = "16 bps tracked"
+    sent_rate = SLOW_SYMRATE * ACTUALCLOCK / NOMINALCLOCK
+    frames = random_frames(np.random.default_rng(28), SLOW_FRAMES)
+    sent = {f.tobytes() for f in frames}
+    syms = mode_symbols(frames, int(n / (SAMPRATE / sent_rate)) + 2, seed=28)
+    iq = mode_capture(dev, syms, SLOW_NCHAN, n, SAMPRATE, sent_rate,
+                      SLOW_CLOCKS, SLOW_MOD_INDEX, NOISE_CLEAN, seed=29)
+    B = SLOW_NCHAN
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    csum, nwin, bb = mode_csum(iq, slow)
+    del iq
+    bb = bb.transpose(0, 1).reshape(B, -1).contiguous()
+
+    def frames_of(soft) -> tuple[int, int, int]:
+        recs, _ = decode_stream(torch.as_tensor(soft, device=dev),
+                                DecodeConfig(), device=dev)
+        good = [bytes(r.data[b]) for r in recs for b in range(B)
+                if r.good[b]]
+        return len(good), sum(d in sent for d in good), len(recs) * B
+
+    for start, symrate in (("32.0", SLOW_SYMRATE),
+                           ("the measured clock", sent_rate)):
+        sym = dataclasses.replace(slow.sym, symrate=symrate)
+        sd.reset_track_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, out = sd.symdemod_scan_csum(csum, sym, nwin)
+        soft_u = out.soft.transpose(0, 1).reshape(B, -1)
+        torch.cuda.synchronize()
+        t_untracked = time.perf_counter() - t1
+        del out
+        t1 = time.perf_counter()
+        soft_t, infos = symdemod_tracked_batched(bb, sym, nwin)
+        t_tracked = time.perf_counter() - t1
+        iters = list(sd.track_stats["iterations"])
+        reads = list(sd.track_stats["host_reads"])
+        stats_u, stats_t = frames_of(soft_u), frames_of(soft_t)
+        est = infos[-1]["symrate"]
+        log(f"  {label}: {B} ch x {n / SAMPRATE:.1f} s sent at "
+            f"{sent_rate:.6f} sym/s, demodulated from {start} "
+            f"({symrate:.6f}): {nwin} windows; frames (good, sent, decoded) "
+            f"untracked {stats_u}, tracked {stats_t}; clock estimates, sym/s: "
+            f"window 0 {infos[0]['symrate'].min():.6f}-"
+            f"{infos[0]['symrate'].max():.6f}, last window {est.min():.6f}-"
+            f"{est.max():.6f}")
+        log(f"  {label}, from {start}: tracked {t_tracked * 1e3 / nwin:.3f} ms "
+            f"a window ({t_tracked * 1e3:.1f} ms for {nwin}, the tables and K3 "
+            f"included), untracked {t_untracked * 1e3 / nwin:.3f}; climb "
+            f"iterations a window min {min(iters)} mean {np.mean(iters):.2f} "
+            f"max {max(iters)} (first 8 windows {iters[:8]}); host reads a "
+            f"window mean {np.mean(reads):.2f} max {max(reads)}")
+        for name, (good, matched, _) in (("untracked", stats_u),
+                                         ("tracked", stats_t)):
+            require(good == matched, f"{label}, {name} from {start}: a good "
+                    f"frame was not sent ({good} good, {matched} sent)")
+    del csum
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["prefix_sum"] == 3, f"{label}: not one K3 launch a "
+            f"demodulation ({launches['prefix_sum']})")
+    require(stats_t[0] == B * (SLOW_FRAMES - 1), f"{label}: {stats_t[0]} "
+            f"frames decoded tracked from the measured clock, not every one "
+            f"after the first sync ({B * (SLOW_FRAMES - 1)})")
+    slow = dataclasses.replace(slow, sym=sym)
+
+    # the window-start search on 2 channels, chunked and in one gather
+    t = build_track_tables(slow.sym, 512)
+    tables = device_tables(t, dev)
+    c2 = sym_ops.samples_csum(bb[:2], sym_ops.track_pad(slow.sym) + t.noff)
+    first = torch.full((2,), sd.initial_firstsample(slow.sym),
+                       dtype=torch.int64, device=dev)
+    k = torch.zeros(2, dtype=torch.int64, device=dev)
+    peak, res = {}, {}
+    for name, cap in (("chunked", sym_ops.SEARCH_ENTRIES), ("one_gather", None)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = window_start_energies(c2, first, k, tables, t.nsym_max,
+                                          t.noff, SLOW_CLOCKS, t.k_range,
+                                          max_entries=cap)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2
+    require(torch.equal(res["chunked"], res["one_gather"]),
+            f"{label}: the window-start search chunked differs from one "
+            "gather in an offset's energy")
+    require(peak["chunked"] <= ts512["chunked"],
+            f"{label}: the window-start search's peak a channel "
+            f"({peak['chunked'] / 2**20:.2f} MiB) is over 2x the 512 bps "
+            f"search's ({ts512['chunked'] / 2 / 2**20:.2f} MiB)")
+    del c2, tables
+
+    # 2 channels, 8 windows, with K3 and under plain_reference()
+    soft_k2, infos_k2 = symdemod_tracked_batched(bb[:2], slow.sym, 8)
+    with _kernels.plain_reference():
+        soft_p2, infos_p2 = symdemod_tracked_batched(bb[:2], slow.sym, 8)
+    require(np.array_equal(soft_k2, soft_p2)
+            and all(np.array_equal(a[key], b[key]) for a, b in
+                    zip(infos_k2, infos_p2) for key in a),
+            f"{label}: 2 channels differ from plain_reference()'s")
+    require(np.array_equal(soft_k2, soft_t[:2, : soft_k2.shape[1]]),
+            f"{label}: 2 channels alone differ from their rows of the batch")
+    del bb
+    torch.cuda.empty_cache()
+    log(f"  {label}: every good frame sent, every frame after the first "
+        f"sync decoded tracked from the measured clock; 2 ch x 8 windows == "
+        f"plain_reference(); launches {launches}")
+    log(f"  {label}: window-start search on 2 ch, peak a channel chunked "
+        f"{peak['chunked'] / 2**20:.2f} MiB, one gather "
+        f"{peak['one_gather'] / 2**20:.2f} ({peak['one_gather'] / peak['chunked']:.1f}x), "
+        f"every offset's energy equal; "
+        f"the untracked search's chunked {ts16['chunked'] / 2 / 2**20:.2f} / "
+        f"one gather {ts16['one_gather'] / 2 / 2**20:.2f}; 512 bps search "
+        f"chunked {ts512['chunked'] / 2 / 2**20:.2f} "
+        f"({time.perf_counter() - t0:.1f} s); card: {card_line()}")
+    return launches
+
+
 def phase_modes(dev) -> dict:
     """Phase 20: the reference's 2048 bps and 16 bps subcarrier modes
     through receive_block at 250 ksps, IQ made on the card by
@@ -3431,15 +3631,23 @@ def phase_modes(dev) -> dict:
     n = nsamples_for(fast.sym, FAST_FRAMES, fast.pm.fftsize)
     syms = mode_symbols(frames, int(n / fast.sym.symbolsamples) + 2, seed=20)
     peaks = {}
-    for label, noise, seed in (("2048 bps clean", NOISE_CLEAN, 22),
-                               ("2048 bps mid", FAST_NOISE_MID, 23)):
+    # the plain path's Fano walk under low caps (a lane that times out
+    # walks its whole budget, ~0.5 ms a micro-step in the plain loop)
+    low_caps = DecodeConfig(viterbi_enabled=False, fano_tier1_maxcycles=1,
+                            fano_maxcycles=3)
+    for label, noise, seed, amp in (
+            ("2048 bps clean", NOISE_CLEAN, 22, 12_000.0),
+            ("2048 bps mid", FAST_NOISE_MID, 23, 12_000.0),
+            ("2048 bps threshold", FAST_NOISE_THRESHOLD, 26,
+             FAST_THRESHOLD_AMPLITUDE)):
         iq = mode_capture(dev, syms, NCHAN, n, SAMPRATE, FAST_SYMRATE, 1, 1.1,
-                          noise, seed)
+                          noise, seed, amplitude=amp)
         clean = noise == NOISE_CLEAN
-        cell, rec, nframes, peaks[label], csum = mode_cell(
+        cell, rec, nframes, peaks[label], csum, _ = mode_cell(
             label, fast, iq, frames, NCHAN if clean else 8,
             None if clean else DecodeConfig(viterbi_enabled=False,
-                                            fano_maxcycles=40))
+                                            fano_maxcycles=40)
+            if noise == FAST_NOISE_MID else low_caps)
         add(cell)
         if clean:
             require(int(rec.good.sum()) == rec.good.size
@@ -3452,6 +3660,9 @@ def phase_modes(dev) -> dict:
         else:
             if (rec.decoder == DECODER_FANO).any():
                 require(cell["fano_walk"] > 0, f"{label}: K4 never launched")
+            if noise == FAST_NOISE_THRESHOLD:
+                require((rec.decoder == DECODER_VITERBI).any(),
+                        f"{label}: no lane reached Viterbi")
             if (rec.decoder == DECODER_VITERBI).any():
                 require(cell["viterbi_a"] > 0 and cell["viterbi_b"] > 0,
                         f"{label}: K5/K6 never launched")
@@ -3473,7 +3684,7 @@ def phase_modes(dev) -> dict:
     log(f"  16 bps capture: {SLOW_NCHAN} ch x {n / SAMPRATE:.1f} s "
         f"({iq.numel() * 2 / 2**30:.2f} GiB int16 IQ)")
     label = "16 bps clean"
-    cell, rec, nframes, peaks[label], csum = mode_cell(
+    cell, rec, nframes, peaks[label], csum, _ = mode_cell(
         label, slow, iq, frames, SLOW_NCHAN, reps=2)
     add(cell)
     require(int(rec.good.sum()) == rec.good.size
@@ -3492,13 +3703,259 @@ def phase_modes(dev) -> dict:
     torch.cuda.empty_cache()
     k3_wrap_check(dev, n // slow.pm.fftsize, SLOW_NCHAN, slow.pm.fftsize)
 
+    # ---- 16 bps below the clean signal: a whole symdemod window may come
+    # out inverted (the window-start search takes a start half a
+    # subcarrier cycle off), and the lanes it hits reach Fano / Viterbi
+    iq = mode_capture(dev, syms, SLOW_NCHAN, n, SAMPRATE, SLOW_SYMRATE,
+                      SLOW_CLOCKS, SLOW_MOD_INDEX, SLOW_NOISE_NOISY, seed=27,
+                      amplitude=SLOW_NOISY_AMPLITUDE)
+    label = "16 bps noisy"
+    cell, rec, nframes, peaks[label], csum, soft = mode_cell(
+        label, slow, iq, frames, 4, low_caps, reps=2, all_sent=False)
+    add(cell)
+    nsym = slow.sym.nsymbols
+    inv, scattered = inverted_windows(soft, syms, nsym)
+    require(cell["fano_walk"] > 0, f"{label}: K4 never launched")
+    # a good frame that was not sent: the Viterbi fallback across an
+    # inverted window, whose syncword (all decode.c verifies) came out
+    # right; the same bits on the plain path
+    sent_ok = matched_mask(rec, frames, SLOW_NCHAN, nframes)
+    false_good = np.nonzero(rec.good & ~sent_ok)[0]
+    for lane in false_good:
+        c, s0 = lane // nframes, int(rec.start_symbol[lane])
+        hit = [w for w in inv[c] if s0 // nsym <= w <= (s0 + 2047) // nsym]
+        require(rec.decoder[lane] == DECODER_VITERBI and hit,
+                f"{label}: lane {lane}, good and not sent, is no Viterbi "
+                f"frame across an inverted window")
+    if (rec.decoder == DECODER_VITERBI).any():
+        require(cell["viterbi_a"] > 0 and cell["viterbi_b"] > 0,
+                f"{label}: K5/K6 never launched")
+        viterbi_lanes_check(iq, nframes, slow, rec, label,
+                            false_good[:4] if false_good.size else None)
+    log(f"  {label}: amplitude {SLOW_NOISY_AMPLITUDE:.0f}, noise "
+        f"{SLOW_NOISE_NOISY:.0f}; inverted windows a channel {inv}; "
+        f"channels with one {sum(1 for w in inv if w)} of {SLOW_NCHAN}; wrong "
+        f"symbols outside them a channel {scattered}; good frames not sent "
+        f"{false_good.size}, lanes {false_good.tolist()} (each a Viterbi "
+        f"frame across an inverted window); records a channel (start, good, "
+        f"good and sent, decoder) "
+        f"{[[(int(rec.start_symbol[c * nframes + f]), int(rec.good[c * nframes + f]), int(sent_ok[c * nframes + f]), int(rec.decoder[c * nframes + f])) for f in range(nframes)] for c in range(SLOW_NCHAN)]}")
+    del iq, csum, soft
+    torch.cuda.empty_cache()
+
+    # ---- the batched tracker in the 16 bps mode: channels sent at 32 sym/s
+    # on the measured spacecraft clock, demodulated from 32.0
+    add(mode_tracked(dev, slow, n, ts512, ts))
+
     add(mode_tools(dev))
-    log(f"phase 20 modes: 2048 bps (128 ch, clean and mid) and 16 bps "
-        f"subcarrier (16 ch) == plain path, every good frame sent; symbol "
+    log(f"phase 20 modes: 2048 bps (128 ch, clean, mid, threshold) and 16 "
+        f"bps subcarrier (16 ch, clean, noisy, tracked) == plain path, every "
+        f"good frame sent; symbol "
         f"stage peak a channel "
         f"{ {k: round(v / 2**20, 2) for k, v in peaks.items()} } MiB against "
         f"512 bps {peak512 / SLOW_NCHAN / 2**20:.2f}; launches {launches} "
         f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+# ---- phase 21: the port's channel statistics
+
+#: frames a point of phase 21's Fano checks (the JAX suite's tests run 24
+#: and 16), and the channel's symbols a point of its hard-BER check
+#: (400,000 there)
+STATS_FRAMES = 1024
+STATS_SYMBOLS = 4_000_000
+#: frames a batch of the K=24 Viterbi decoders: a frame's decision tape
+#: is 1 GiB
+STATS_VITERBI_BATCH = 8
+STATS_VITERBI_FRAMES = 16
+
+
+def phase_statistics(dev) -> dict:
+    """Phase 21: the JAX suite's statistical checks (tests/
+    test_ber_regression.py:20, :36; tests/test_mode16bps_and_fer.py:80)
+    on the port's own channel (utils/sim.simulate on a CUDA generator) at
+    larger counts, through K4 (fano_decode), K10 (ops/viterbi.decode_frame)
+    and K5 + K6 (ops/viterbi_fused.decode_frame_fused), with the same
+    asserts: the hard symbol error rate within 25 % + 2e-4 of theory at
+    Es/N0 -1, 1, 3 dB; at Eb/N0 3.5 dB no undetected error, at least 75 %
+    of frames finished, under 10 cycles a bit; the FER sweep at 2.5, 3.0,
+    4.0 dB (deletions monotone, at most 2/16 at 4.0 dB, not all at 2.5, no
+    undetected error) and both Viterbi decoders giving the sent bits of
+    frames Fano deleted at 3.0 dB (at 2.5 dB if none was).  No undetected
+    error is allowed in the JAX tests' counts of frames (the first 24 at
+    3.5 dB, 16 a point of the sweep); one past them is counted in the
+    table and must be the plain walk's too (K4 adds no error).  Then K4
+    against its plain walk (on the CPU, ~4x quicker a micro-step than on
+    the card) on 16 lanes at 2.5 dB under a cap of 4 cycles a bit, so
+    some time out.  Prints the BER / FER table; returns the launches
+    before the comparisons."""
+    import torch
+
+    from isee3_decoder_tpu_torch import _kernels
+    from isee3_decoder_tpu_torch.config import (
+        FRAMEBITS,
+        MCQLI24,
+        SYNC_STATE,
+        SYNCWORD,
+    )
+    from isee3_decoder_tpu_torch.ops.encode import encode_bits
+    from isee3_decoder_tpu_torch.ops.fano import FanoParams, fano_decode
+    from isee3_decoder_tpu_torch.ops.viterbi import decode_frames
+    from isee3_decoder_tpu_torch.utils.metrics import gen_met
+    from isee3_decoder_tpu_torch.utils.sim import ebn0_to_noise, simulate
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    _kernels.reset_launches()
+    table = []
+
+    # ---- the channel's hard symbol error rate against theory
+    for esn0_db in (-1.0, 1.0, 3.0):
+        noise = 60.0 / (10 ** (esn0_db / 20.0)) / math.sqrt(2.0)
+        rx = simulate(gen, torch.zeros(STATS_SYMBOLS, dtype=torch.uint8,
+                                       device=dev), 60.0, noise)
+        ser = float((rx > 128).double().mean())
+        want = 0.5 * math.erfc(60.0 / (noise * math.sqrt(2.0)))
+        table.append(f"Es/N0 {esn0_db:+.1f} dB: hard SER {ser:.6f}, theory "
+                     f"{want:.6f} ({STATS_SYMBOLS:,} symbols)")
+        require(abs(ser - want) < 0.25 * want + 2e-4,
+                f"statistics: SER {ser} against {want} at {esn0_db} dB")
+
+    def frames_of(start_state: int, tail: int):
+        rng = np.random.default_rng(31)
+        bits = np.zeros((STATS_FRAMES, FRAMEBITS), np.uint8)
+        bits[:, : FRAMEBITS - 64] = rng.integers(0, 2, (STATS_FRAMES,
+                                                        FRAMEBITS - 64))
+        for j in range(MCQLI24.k - 1):
+            bits[:, FRAMEBITS - 1 - j] = (tail >> j) & 1
+        syms, _ = encode_bits(torch.as_tensor(bits, device=dev), start_state,
+                              MCQLI24)
+        return bits, syms
+
+    def fano(syms, bits, ebn0, start_state, tail, params):
+        noise = ebn0_to_noise(100.0, ebn0)
+        mettab = torch.as_tensor(gen_met(100.0, noise, 0.5, 8.0), device=dev)
+        rx = simulate(gen, syms, 100.0, noise)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fano_decode(rx, mettab, FRAMEBITS, start_state, tail, MCQLI24,
+                          params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        finished = res.goodbits.cpu().numpy() == FRAMEBITS
+        errs = (res.bits.cpu().numpy() != bits).any(axis=1)
+        cycles = res.cycles.cpu().numpy()
+        cpb = float(cycles[finished].mean() / FRAMEBITS) if finished.any() \
+            else float("nan")
+        for lane in np.nonzero(finished & errs)[0]:
+            wrong = np.nonzero(res.bits[lane].cpu().numpy() != bits[lane])[0]
+            log(f"  undetected error at Eb/N0 {ebn0} dB, lane {lane}: "
+                f"{wrong.size} wrong bits in [{wrong.min()}, {wrong.max()}], "
+                f"{cycles[lane]} cycles, metric {int(res.metric[lane])}")
+            undetected.append((f"{ebn0} dB, lane {lane}", rx[lane: lane + 1],
+                               mettab, start_state, tail, params))
+        return rx, mettab, finished, errs, cpb, ms
+
+    undetected = []
+
+    # ---- the Fano operating point: MCQLI-24 at 3.5 dB, FanoParams(32, 200)
+    bits0, syms0 = frames_of(0, 0)
+    _, _, fin35, errs, cpb, ms = fano(syms0, bits0, 3.5, 0, 0,
+                                      FanoParams(32, 200))
+    table.append(f"Eb/N0 3.5 dB, FanoParams(32, 200): {STATS_FRAMES} frames, "
+                 f"finished {int(fin35.sum())}, undetected "
+                 f"{int((fin35 & errs).sum())}, {cpb:.3f} cycles a bit on the "
+                 f"finished, K4 {ms:.1f} ms")
+    require(not (fin35 & errs)[:24].any(),
+            "statistics: undetected error at 3.5 dB")
+    require(fin35.mean() >= 0.75, f"statistics: deletion rate "
+            f"{1 - fin35.mean():.3f} at 3.5 dB")
+    require(cpb < 10, f"statistics: {cpb} cycles a bit at 3.5 dB")
+
+    # ---- the FER sweep: frames from the sync state, the tail forced
+    tail = SYNCWORD & ((1 << (MCQLI24.k - 1)) - 1)
+    bits, syms = frames_of(SYNC_STATE, tail)
+    deletion, deleted = {}, {}
+    rx25 = met25 = None
+    for ebn0 in (2.5, 3.0, 4.0):
+        rx, met, fin, errs, cpb, ms = fano(syms, bits, ebn0, SYNC_STATE,
+                                           tail, FanoParams(32, 100))
+        if ebn0 == 2.5:
+            rx25, met25 = rx, met
+        deletion[ebn0] = 1.0 - float(fin.mean())
+        deleted[ebn0] = (rx[torch.as_tensor(~fin, device=dev)],
+                         np.nonzero(~fin)[0])
+        table.append(f"Eb/N0 {ebn0} dB, FanoParams(32, 100): {STATS_FRAMES} "
+                     f"frames, deleted {int((~fin).sum())} (FER "
+                     f"{deletion[ebn0]:.5f}), undetected "
+                     f"{int((fin & errs).sum())}, {cpb:.3f} cycles a bit on "
+                     f"the finished, K4 {ms:.1f} ms")
+        require(not (fin & errs)[:16].any(),
+                f"statistics: undetected error at {ebn0} dB")
+    require(deletion[4.0] <= deletion[3.0] <= deletion[2.5] + 1e-9,
+            f"statistics: deletion rates not monotone {deletion}")
+    require(deletion[4.0] <= 2 / 16, f"statistics: deletion {deletion}")
+    require(deletion[2.5] < 1.0, "statistics: every frame deleted at 2.5 dB")
+
+    # ---- the hybrid policy: both Viterbi decoders on the deleted frames
+    at = 3.0 if deleted[3.0][1].size else 2.5
+    rxd, idx = deleted[at]
+    rxd, idx = rxd[:STATS_VITERBI_FRAMES], idx[:STATS_VITERBI_FRAMES]
+    vit_ms = {}
+    for backend in ("jnp", "fused"):
+        got = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for lo in range(0, idx.size, STATS_VITERBI_BATCH):
+            got.append(decode_frames(rxd[lo: lo + STATS_VITERBI_BATCH],
+                                     FRAMEBITS, SYNC_STATE, SYNC_STATE,
+                                     MCQLI24, backend).cpu().numpy())
+            torch.cuda.empty_cache()
+        vit_ms[backend] = (time.perf_counter() - t1) * 1e3
+        if idx.size:
+            got = np.concatenate(got)
+            require(np.array_equal(got, bits[idx]), f"statistics: the "
+                    f"{backend} Viterbi decoder missed the sent bits of "
+                    f"{int((got != bits[idx]).any(axis=1).sum())} of "
+                    f"{idx.size} deleted frames at {at} dB")
+    table.append(f"Viterbi on {idx.size} of the frames Fano deleted at {at} "
+                 f"dB: sent bits from K10 ({vit_ms['jnp']:.1f} ms) and K5+K6 "
+                 f"({vit_ms['fused']:.1f} ms), in batches of "
+                 f"{STATS_VITERBI_BATCH}")
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["fano_walk"] > 0, "statistics: K4 never launched")
+    if idx.size:
+        for k in ("viterbi_acs", "viterbi_a", "viterbi_b"):
+            require(launches[k] > 0, f"statistics: {k} never launched")
+
+    # ---- K4 against its plain walk: 16 lanes at 2.5 dB, and every
+    # undetected error
+    for name, rx, met, st, tl, params in [
+            ("2.5 dB, 16 lanes, FanoParams(32, 4)", rx25[:16], met25,
+             SYNC_STATE, tail, FanoParams(32, 4))] + [
+            (f"the undetected error at {case[0]}", *case[1:])
+            for case in undetected]:
+        t1 = time.perf_counter()
+        r_k = fano_decode(rx, met, FRAMEBITS, st, tl, MCQLI24, params)
+        r_p = fano_decode(rx.cpu(), met.cpu(), FRAMEBITS, st, tl, MCQLI24,
+                          params)
+        for field in ("bits", "goodbits", "metric", "cycles"):
+            require(torch.equal(getattr(r_k, field).cpu(),
+                                getattr(r_p, field)),
+                    f"statistics, {name}: K4 and the plain walk differ in "
+                    f"{field}")
+        done = int((r_k.goodbits == FRAMEBITS).sum())
+        log(f"  K4 == plain walk at {name}: bits, goodbits, metric, cycles "
+            f"equal; {done} finished, {rx.shape[0] - done} timed out; max cycles "
+            f"{int(r_k.cycles.max())} ({time.perf_counter() - t1:.1f} s)")
+    log(f"phase 21 statistics: the port's channel (utils/sim.simulate on a "
+        f"CUDA generator) through K4, K10 and K5+K6, the JAX suite's asserts "
+        f"held; launches {launches} ({time.perf_counter() - t0:.1f} s); card: "
+        f"{card_line()}")
+    for line in table:
+        log(f"  {line}")
     return launches
 
 
@@ -3727,6 +4184,13 @@ def main() -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
+    # ---- phase 21: the channel statistics through K4, K10, K5 + K6
+    # (before phase 12 as well)
+    stats_launches = phase_statistics(dev)
+    for k, v in stats_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     # ---- phase 12: device times under torch.profiler, after every timed run
     profile_kernels(dev, checks, max(int((rec_thr.decoder ==
                                           DECODER_VITERBI).sum()), 1))
@@ -3782,6 +4246,7 @@ def main() -> int:
             "stream_cli_launches": new_launches.get(name, 0),
             "tracking_launches": track_launches.get(name, 0),
             "modes_launches": modes_launches.get(name, 0),
+            "stats_launches": stats_launches.get(name, 0),
             **{key: checks[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -15,8 +15,9 @@ to the device once a call; a window gathers each channel's table row by
 its ``k``, so the clock is data.  A window (``tracked_window``):
 
   * the window-start timing search over all offsets at the channel's
-    clock (relative integer switchpoints), one (B, edges, offsets) slab
-    of the prefix sum;
+    clock (relative integer switchpoints), gathered from the prefix sum
+    in chunks of offsets (``window_start_energies``), and its first
+    largest;
   * the hill climb as a loop over per-channel state machines (probe
     order ss+d, ss-d, first+p, first-p with sign flips and the two-pass
     no-change exit), one probe for every channel still climbing per
@@ -140,6 +141,54 @@ def device_tables(t: TrackTables, device) -> DeviceTables:
         t.flo, t.up, t.tie, t.srch, t.nsym)))
 
 
+def window_start_energies(
+    csum: torch.Tensor,
+    first: torch.Tensor,
+    k: torch.Tensor,
+    tables: DeviceTables,
+    nsym_max: int,
+    noff: int,
+    symbolclocks: int,
+    k_range: int,
+    max_entries: int | None = sym_ops.SEARCH_ENTRIES,
+) -> torch.Tensor:
+    """(B, noff) float64 mean energy of every window start offset
+    -(noff // 2) .. noff - noff // 2 - 1 at each channel's grid clock.
+
+    The JAX package slices noff prefix-sum entries from each switchpoint
+    (dynamic_slice): a start is clamped into [0, L - noff] so the slice
+    fits, the whole slice shifting, where a single index is not clamped.
+    The offsets go in chunks whose gather holds at most ``max_entries``
+    prefix-sum entries a channel (None: one chunk), as
+    ``ops/symbols.timesearch_from_csum``'s do: an offset reads the same
+    entries and sums its symbols in the same order whatever the chunk."""
+    B, L = csum.shape
+    dev = csum.device
+    off0 = -(noff // 2)
+    srch = tables.srch[k + k_range].to(torch.int64)  # (B, E)
+    starts = (first[:, None] + off0 + srch).clamp(0, L - noff)
+    n_b = tables.nsym[k + k_range]
+    valid = torch.arange(nsym_max, device=dev)[None, None, :] < n_b[:, None,
+                                                                    None]
+    step = noff if max_entries is None else max(max_entries // srch.shape[1],
+                                                1)
+    parts = []
+    for o0 in range(0, noff, step):
+        offs = torch.arange(o0, min(o0 + step, noff), device=dev)
+        # (B, chunk, E) int32; each buffer goes before the next is made
+        V = csum.gather(1, (starts[:, None, :] + offs[None, :, None]).reshape(
+            B, -1)).reshape(B, offs.numel(), -1)
+        D = (V[..., 1:] - V[..., :-1]).reshape(B, offs.numel(), nsym_max,
+                                               symbolclocks, 2)
+        del V
+        # int64 over the clocks of a symbol, as jnp's sum of int32 under x64
+        I = (D[..., 1] - D[..., 0]).sum(dim=-1, dtype=torch.int64)
+        del D
+        parts.append(torch.where(valid, I.to(torch.float64) ** 2, 0.0).sum(
+            dim=-1))
+    return torch.cat(parts, dim=1) / n_b[:, None].to(torch.float64)
+
+
 def tracked_window(
     csum: torch.Tensor,
     first: torch.Tensor,
@@ -162,7 +211,6 @@ def tracked_window(
     beyond the prefix sum's pad (INT32_MIN fills) reach, and the sums
     round as the order falls."""
     B = csum.shape[0]
-    L = csum.shape[1]
     c = symbolclocks
     dev = csum.device
     first = first.to(device=dev, dtype=torch.int64)
@@ -186,26 +234,10 @@ def tracked_window(
         sq = torch.where(valid, integ.to(torch.float64) ** 2, 0.0)
         return sq.sum(dim=-1) / n.to(torch.float64)
 
-    # ---------- window-start timing search (relative rounding) ----------
-    # the JAX package slices noff prefix-sum entries from each switchpoint
-    # (dynamic_slice): a start is clamped into [0, L - noff] so the slice
-    # fits, the whole slice shifting, where a single index is not clamped
-    off0 = -(noff // 2)
-    base = first[:, None] + off0 + tables.srch[k + k_range].to(torch.int64)
-    starts = base.clamp(0, L - noff)
-    idx = starts[:, :, None] + torch.arange(noff, device=dev)
-    V = csum.gather(1, idx.reshape(B, -1)).reshape(B, -1, noff)
-    D = V[:, 1:] - V[:, :-1]
-    D = D.reshape(B, nsym_max, c, 2, noff)
-    # int64 over the clocks of a symbol, as jnp's sum of int32 under x64
-    I = (D[..., 1, :] - D[..., 0, :]).sum(dim=2, dtype=torch.int64)
-    n_b = tables.nsym[k + k_range]
-    valid = (sym_j < n_b[:, None])[..., None]
-    energy_o = (torch.where(valid, I.to(torch.float64) ** 2, 0.0).sum(dim=1)
-                / n_b[:, None].to(torch.float64))  # (B, noff)
-    del V, D, I
+    energy_o = window_start_energies(csum, first, k, tables, nsym_max, noff,
+                                     c, k_range)
     best = argmax_first(energy_o, dim=-1)
-    symphase = off0 + best
+    symphase = best - noff // 2
     first = first + symphase
     maxe = energy_o.gather(1, best[:, None])[:, 0]
 

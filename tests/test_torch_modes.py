@@ -31,6 +31,7 @@ from isee3_decoder_tpu.models import pipeline as jpipe
 from isee3_decoder_tpu.models.decode import (
     DECODER_FANO,
     DECODER_QLEC,
+    DECODER_VITERBI,
     DecodeConfig,
 )
 from isee3_decoder_tpu.ops import prefix_pallas as jpp
@@ -259,6 +260,60 @@ def test_receive_block_2048bps_matches_jax():
             np.testing.assert_array_equal(getattr(rt, f), getattr(rj, f), f)
 
 
+# 2048 bps at the bench's threshold Eb/N0: noise 110,000 at 1024 sym/s
+# and 61 samples a symbol is 55,000 at 4x the symbol rate, ~28,000 at 16
+# samples a symbol; at 30,000 the noisy channel's last lane fails the Fano
+# walk under FAST_CFG's caps (1 and 3 cycles a bit) after a good frame, so
+# the gated Viterbi fallback takes it
+FAST_NOISE_THRESHOLD = 30_000.0
+
+
+def _receive_block_threshold(viterbi: bool):
+    """receive_block at 2048 bps on a clean and a threshold channel through
+    both packages, with the Viterbi fallback on or off: equal records and
+    sync starts, every good frame a sent one.  Returns the port's
+    records."""
+    import dataclasses
+
+    frames, iq = _fast_recording(8, [600.0, FAST_NOISE_THRESHOLD])
+    jcfg = dataclasses.replace(FAST_CFG, decode=dataclasses.replace(
+        FAST_CFG.decode, viterbi_enabled=viterbi))
+    tcfg = convert.pipeline_config(jcfg)
+    nframes = 4  # whole frames after the first sync, as the clean test's
+    rec_j, ss_j = jpipe.receive_block(iq, nframes, jcfg)
+    rec_t, ss_t = tpipe.receive_block(torch.from_numpy(iq), nframes, tcfg,
+                                      device="cpu")
+    np.testing.assert_array_equal(ss_t, ss_j)
+    for f in ("data", "good", "decoder", "start_symbol"):
+        np.testing.assert_array_equal(getattr(rec_t, f), getattr(rec_j, f), f)
+    sent = {f.tobytes() for f in frames}
+    assert all(d.tobytes() in sent for g, d in zip(rec_t.good, rec_t.data)
+               if g)
+    assert rec_t.good[:nframes].all()
+    return rec_t
+
+
+def test_receive_block_2048bps_threshold_matches_jax():
+    """The threshold channel with the Viterbi fallback off: the lane the
+    Fano walk deletes is a bad frame labeled Fano in both packages, the
+    other lanes decode."""
+    rec = _receive_block_threshold(viterbi=False)
+    bad = ~rec.good
+    assert bad.sum() == 1 and (rec.decoder[bad] == DECODER_FANO).all()
+    assert DECODER_FANO in rec.decoder[4:] and DECODER_VITERBI not in \
+        rec.decoder
+
+
+@pytest.mark.slow
+def test_receive_block_2048bps_threshold_viterbi_matches_jax():
+    """The same with the Viterbi fallback on: the deleted lane decodes by
+    Viterbi (K5/K6's plain versions at K=24, minutes on the CPU; JAX's
+    "jnp" decoder), to the sent frame, in both packages."""
+    rec = _receive_block_threshold(viterbi=True)
+    assert rec.good.all()
+    assert DECODER_VITERBI in rec.decoder
+
+
 def _stream_chunked_vs_one_call(raw: np.ndarray, cfg, cuts) -> tuple:
     """receive_stream over consecutive cuts against demod_to_symbols +
     decode_stream on the whole recording: the flat records and the soft
@@ -355,6 +410,66 @@ def test_16bps_full_frames_match_jax():
             np.testing.assert_array_equal(getattr(rt, f), getattr(rj, f), f)
     assert any(r.good[0] and bytes(r.data[0]) == bytes(frames[1])
                for r in recs_t)
+
+
+@pytest.mark.slow
+def test_16bps_window_inversion_matches_jax():
+    """test_mode16bps_and_fer.py's full-frame case at noise 16,000 (Es/N0
+    ≈ 12 dB) through both packages.  The window-start search of window 64
+    takes a start +4 samples off (half a cycle of the 8-sample
+    subcarrier), which inverts every symbol of the window and loses
+    almost no energy; window 65 takes -4 back.  So symbols 2048-2079 come
+    out inverted and no other symbol is wrong.  The inverted window holds
+    the sync word before frame 1: the sync search takes a false start
+    (symbol 1125), where the Fano walk fails.  The port gives JAX's soft
+    symbols, symbol phases and records; a change that mends or moves the
+    inversion in one package shows here.  Slow: JAX compiles its 16 bps
+    programs for minutes, and the plain Fano walk runs the false start to
+    its budget."""
+    from isee3_decoder_tpu.models import symdemod as jsymdemod
+    from isee3_decoder_tpu.models.decode import decode_stream as jdecode
+
+    fs = 8192.0
+    rng = np.random.default_rng(42)
+    frames = testsignal.random_frames(rng, 3)
+    lead = np.random.default_rng(42)
+    testsignal.random_frames(lead, 3)
+    sent = np.concatenate([lead.integers(0, 2, 20).astype(np.uint8),
+                           testsignal.frames_to_symbols(frames)])
+    iq = testsignal.synthesize_iq(frames, samprate=fs, symrate=32.0,
+                                  carrier=1700.0, mod_index=0.7,
+                                  amplitude=9000.0, noise_std=16_000.0,
+                                  symbolclocks=32, lead_symbols=20, rng=rng)
+    jcfg = jpipe.PipelineConfig(
+        pm=PMConfig(samprate=fs, binsize=8.0, search_width=100.0),
+        sym=SymConfig(samprate=fs, symrate=32.0, symbolclocks=32),
+    )
+    tcfg = convert.pipeline_config(jcfg)
+    soft_j, bb_j, _, _ = jpipe.demod_to_symbols(jnp.asarray(iq), jcfg)
+    soft_t, bb_t, _, _ = tpipe.demod_to_symbols(
+        torch.from_numpy(iq.astype(np.complex64)), tcfg)
+    soft_j, soft_t = np.asarray(soft_j), soft_t.numpy()
+    np.testing.assert_array_equal(soft_t, soft_j)
+    nwin = soft_t.shape[1] // 32
+    _, out_j = jsymdemod.symdemod_scan(bb_j, jcfg.sym, nwin)
+    _, out_t = tsd.symdemod_scan(bb_t, tcfg.sym, nwin)
+    phase_j = np.asarray(out_j.symphase)[:, 0]
+    phase_t = out_t.symphase[:, 0].numpy()
+    np.testing.assert_array_equal(phase_t, phase_j)
+    assert phase_t[63:67].tolist() == [0, 4, -4, 0]
+    for soft in (soft_j, soft_t):
+        wrong = np.nonzero((soft[0] > 128).astype(np.uint8)
+                           != sent[: soft.shape[1]])[0]
+        np.testing.assert_array_equal(wrong, np.arange(2048, 2080))
+    recs_j, _ = jdecode(soft_j, jcfg.decode)
+    recs_t, _ = decode_stream(soft_t, tcfg.decode, device="cpu")
+    assert len(recs_t) == len(recs_j) == 1
+    for rt, rj in zip(recs_t, recs_j):
+        for f in ("data", "good", "decoder", "start_symbol"):
+            np.testing.assert_array_equal(getattr(rt, f), getattr(rj, f), f)
+    r = recs_t[0]
+    assert (int(r.start_symbol[0]), bool(r.good[0]), int(r.decoder[0])) == (
+        1125, False, DECODER_FANO)
 
 
 @pytest.mark.parametrize("arg,want", [

@@ -448,3 +448,44 @@ def test_symdemod_tracking_cli_reads_per_window(capsys):
     assert len(stats["iterations"]) == 2
     assert all(r == i + 3 and i >= 4 for r, i in zip(stats["host_reads"],
                                                      stats["iterations"]))
+
+
+def test_symdemod_tracking_cli_matches_the_library_tracker_16bps(capsys):
+    """symdemod -r 8192 -c 32. -t: the 16 bps subcarrier mode (32 clocks a
+    symbol, 256 samples a symbol) on 5.5 s of baseband sent at 32 sym/s
+    on the measured clock, off the nominal 32 the clock estimate starts
+    from.  Its bytes are the port's library host tracker's on the whole
+    recording, window by window, and the JAX package's batched tracker's
+    (which the climb matches here: it stays inside one grid step of the
+    host's clock).  The JAX package's host tracker gives the same bytes
+    but compiles for ~2 minutes in this mode, so it is not run here."""
+    from isee3_decoder_tpu.config import ACTUALCLOCK, NOMINALCLOCK
+    from isee3_decoder_tpu.models import symdemod_tracked as jtracked
+
+    symrate = 32.0 * ACTUALCLOCK / NOMINALCLOCK
+    rng = np.random.default_rng(16)
+    syms = rng.integers(0, 2, int(5.5 * symrate) + 8).astype(np.uint8)
+    wave = ttestsignal.manchester_waveform(syms, 8192.0 / symrate,
+                                           symbolclocks=32)
+    x = (2000.0 * wave + rng.normal(0, 150.0, len(wave))).astype(
+        np.int16)[: int(5.5 * 8192)]
+    rc, out = _run_cli(tsymdemod_cli.main,
+                       ["-r", "8192", "-c", "32.", "-t", "--device", "cpu"],
+                       x.tobytes())
+    assert rc == 0
+    got = np.frombuffer(out, np.uint8)
+    nwin = -(-got.size // 32)
+    tcfg = tsym.SymConfig(samprate=8192.0, symrate=32.0, symbolclocks=32)
+    want, infos = tsymdemod.symdemod_tracked(x[None], tcfg, nwin,
+                                             backend="host", device="cpu")
+    assert nwin == 5 and got.size >= nwin * 31
+    np.testing.assert_array_equal(got, np.asarray(want)[0])
+    jcfg = jsym.SymConfig(samprate=8192.0, symrate=32.0, symbolclocks=32)
+    soft_j, infos_j = jtracked.symdemod_tracked_batched(x[None], jcfg, nwin)
+    np.testing.assert_array_equal(got, np.asarray(soft_j)[0])
+    for it, ij in zip(infos, infos_j):
+        for key in ("firstsample", "symbolsamples"):
+            np.testing.assert_array_equal(np.asarray(it[key]),
+                                          np.asarray(ij[key]), err_msg=key)
+    assert float(infos[-1]["symbolsamples"][0]) < tcfg.symbolsamples
+    assert "clocks/symbol 32" in capsys.readouterr().err

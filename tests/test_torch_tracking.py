@@ -29,12 +29,14 @@ SAMPRATE = 32768.0
 
 
 def _baseband(seed: int, symrate: float, seconds: float, amp: float = 2000.0,
-              noise: float = 150.0, samprate: float = SAMPRATE) -> np.ndarray:
-    """int16 Manchester baseband of random symbols sent at ``symrate``,
-    ``seconds`` long."""
+              noise: float = 150.0, samprate: float = SAMPRATE,
+              clocks: int = 1) -> np.ndarray:
+    """int16 Manchester baseband of random symbols sent at ``symrate`` on
+    ``clocks`` subcarrier cycles a symbol, ``seconds`` long."""
     rng = np.random.default_rng(seed)
     syms = rng.integers(0, 2, int(seconds * symrate) + 8).astype(np.uint8)
-    wave = testsignal.manchester_waveform(syms, samprate / symrate)
+    wave = testsignal.manchester_waveform(syms, samprate / symrate,
+                                          symbolclocks=clocks)
     x = amp * wave + rng.normal(0, noise, len(wave))
     return x[: int(seconds * samprate)].astype(np.int16)
 
@@ -141,19 +143,77 @@ def test_tracked_window_matches_jax(seconds):
     assert (np.asarray(want[5]) < EXACT_ENERGY).all() == (seconds > 1)
 
 
+# the 16 bps subcarrier mode at 8192 sps: 32 sym/s, 32 clocks a symbol
+# (256 samples a symbol, 8 a subcarrier cycle), 1 s windows of 32 symbols
+SUB_FS = 8192.0
+
+
 @pytest.mark.parametrize("clocks_hz", [(1024.25,), (1024.4,),
-                                       (1024.0, 1024.3, 1023.8)],
-                         ids=["1024.25", "1024.4", "three_clocks"])
+                                       (1024.0, 1024.3, 1023.8),
+                                       (32.0, 32.01, 31.99)],
+                         ids=["1024.25", "1024.4", "three_clocks",
+                              "16bps_three_clocks"])
 def test_batched_tracker_matches_jax(clocks_hz):
-    jcfg, tcfg = _configs()
-    x = np.stack([_baseband(60 + b, f, 3.2) for b, f in enumerate(clocks_hz)])
-    want = jtracked.symdemod_tracked_batched(x, jcfg, 3)
-    got = ttracked.symdemod_tracked_batched(x, tcfg, 3, device="cpu")
+    if clocks_hz[0] < 1000:
+        # 16 bps: 5 s of subcarrier baseband, 4 windows
+        jcfg, tcfg = _configs(SUB_FS, 32.0, 32)
+        x = np.stack([_baseband(60 + b, f, 5.0, samprate=SUB_FS, clocks=32)
+                      for b, f in enumerate(clocks_hz)])
+        nwin = 4
+    else:
+        jcfg, tcfg = _configs()
+        x = np.stack([_baseband(60 + b, f, 3.2)
+                      for b, f in enumerate(clocks_hz)])
+        nwin = 3
+    want = jtracked.symdemod_tracked_batched(x, jcfg, nwin)
+    got = ttracked.symdemod_tracked_batched(x, tcfg, nwin, device="cpu")
     _assert_tracked_equal(got, want)
     # the batched tracker is also symdemod_tracked's "auto" at B > 1
     if len(clocks_hz) > 1:
         _assert_tracked_equal(
-            tsymdemod.symdemod_tracked(x, tcfg, 3, device="cpu"), want)
+            tsymdemod.symdemod_tracked(x, tcfg, nwin, device="cpu"), want)
+
+
+@pytest.mark.parametrize("case", ["whole_window", "ends_inside", "16bps"])
+@pytest.mark.parametrize("per_chunk", [1, 3, 10])
+def test_window_start_search_chunked_equals_one_gather(case, per_chunk):
+    """The tracked window's start search in chunks of offsets (down to one
+    offset a chunk, and chunk sizes that do not divide the offsets) gives
+    one gather's energy at every offset for every channel, bit for bit:
+    on a whole window, on a recording that ends inside it (the slices'
+    starts clamp into the prefix sum), and in the 16 bps mode (an
+    inversion by half a subcarrier cycle, a few samples away, is the
+    runner-up there)."""
+    if case == "16bps":
+        _, tcfg = _configs(SUB_FS, 32.0, 32)
+        x = np.stack([_baseband(30 + b, f, 1.6, samprate=SUB_FS, clocks=32,
+                                noise=900.0)
+                      for b, f in enumerate((32.0, 32.01, 31.99))])
+    else:
+        _, tcfg = _configs()
+        x = np.stack([_baseband(40 + b, 1024.0 + 0.2 * b,
+                                1.6 if case == "whole_window" else 0.6)
+                      for b in range(3)])
+    t = ttracked.build_track_tables(tcfg, 512)
+    tables = ttracked.device_tables(t, "cpu")
+    csum = tsym.samples_csum(torch.from_numpy(x), tsym.track_pad(tcfg)
+                             + t.noff)
+    first = torch.tensor([16, 30, 9], dtype=torch.int64)
+    k = torch.tensor([0, 5, -7], dtype=torch.int64)
+    args = (csum, first, k, tables, t.nsym_max, t.noff, tcfg.symbolclocks,
+            t.k_range)
+    # per_chunk offsets a chunk, the bound not a multiple of the row
+    entries = (per_chunk + 1) * t.srch.shape[1] - 1
+    assert -(-t.noff // per_chunk) >= 3  # at least three chunks
+    want = ttracked.window_start_energies(*args, max_entries=None)
+    for got in (ttracked.window_start_energies(*args, max_entries=entries),
+                ttracked.window_start_energies(*args)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if case == "ends_inside":
+        L = csum.shape[1]
+        srch = t.srch[k.numpy() + t.k_range]
+        assert (first.numpy()[:, None] - t.noff // 2 + srch + t.noff
+                > L).any()
 
 
 @pytest.mark.parametrize("nchan", [1, 2])
