@@ -48,6 +48,7 @@ from isee3_decoder_tpu_torch.ops.viterbi_fused import (
     decision_budget,
     frame_tape_bytes,
 )
+from isee3_decoder_tpu_torch.utils import profiling
 from isee3_decoder_tpu_torch.utils.metrics import decoder_amplitudes, gen_met
 from isee3_decoder_tpu_torch.utils.timeformat import format_hms
 
@@ -139,9 +140,9 @@ def _gather_frames(
               + FRAMESYMBOLS * torch.arange(nframes, device=dev)[None, :])
     idx = (starts[..., None]
            + torch.arange(FRAMESYMBOLS, device=dev)[None, None, :]).reshape(B, -1)
-    if int(idx.max()) >= S:
-        raise ValueError(f"frame window past end of soft stream "
-                         f"({int(idx.max())} >= {S})")
+    top = int(profiling.read("decode/frame_bound", idx.max()))
+    if top >= S:
+        raise ValueError(f"frame window past end of soft stream ({top} >= {S})")
     return symbols.gather(1, idx).reshape(B * nframes, FRAMESYMBOLS)
 
 
@@ -230,7 +231,7 @@ def _decode_frames_core(
     bits = torch.where(ec_ok[:, None], ec_bits, ql_bits)
     cycles = torch.zeros(L, dtype=torch.int32, device=dev)
     fano_ok = none
-    if cfg.fano_enabled and not bool(pre_ok.all()):
+    if cfg.fano_enabled and not profiling.read("decode/pre_ok", pre_ok.all()):
         res = fano_decode(
             fsyms, _mettab_device(cfg, dev), FRAMEBITS, SYNC_STATE,
             _tail(cfg.code), cfg.code, cfg.fano_params_tier1(), skip=pre_ok,
@@ -268,8 +269,10 @@ def decode_block_device(
       [19L, 23L)     fano cycles, int32 little-endian per lane
       [23L, 23L+4B)  sync_start per channel, int32 little-endian
     """
-    ss, _ = find_sync(symbols[:, : npos + SYNCBITS], npos, cfg.code)
-    data, good, decoder, ok, cycles = _decode_frames_core(symbols, ss, nframes, cfg)
+    with profiling.span("decode/tiers"):
+        ss, _ = find_sync(symbols[:, : npos + SYNCBITS], npos, cfg.code)
+        data, good, decoder, ok, cycles = _decode_frames_core(
+            symbols, ss, nframes, cfg)
     return torch.cat([
         data.reshape(-1),
         good.to(torch.uint8),
@@ -308,8 +311,8 @@ def _gather_failed_lanes(
             f" >= {symbols.shape[-1]}"
         )
     dev = symbols.device
-    rows = symbols[torch.as_tensor(sub // nframes, device=dev)]
-    return rows.gather(1, torch.as_tensor(idx, device=dev))
+    rows = symbols[profiling.upload("host_tail/lanes", sub // nframes, dev)]
+    return rows.gather(1, profiling.upload("host_tail/lanes", idx, dev))
 
 
 def fano_tier2_inplace(
@@ -336,17 +339,20 @@ def fano_tier2_inplace(
     sub = np.nonzero(~ok)[0]
     if sub.size == 0:
         return
-    fsyms = _gather_failed_lanes(starts, symbols, sub, nframes)
-    res = fano_decode(
-        fsyms, _mettab_device(cfg, fsyms.device), FRAMEBITS, SYNC_STATE,
-        _tail(cfg.code), cfg.code, cfg.fano_params(),
-    )
-    fano_ok = (res.goodbits == FRAMEBITS).cpu().numpy()
-    data[sub] = bits_to_bytes(res.bits).cpu().numpy()
-    good[sub] = fano_ok & verify_frame(res.bits).cpu().numpy()
-    decoder[sub] = np.where(fano_ok, DECODER_FANO, decoder[sub])
-    ok[sub] = fano_ok
-    cycles[sub] = res.cycles.cpu().numpy()
+    profiling.count("host_tail/tier2_lanes", sub.size)
+    site = "host_tail/fano_tier2"
+    with profiling.span(site):
+        fsyms = _gather_failed_lanes(starts, symbols, sub, nframes)
+        res = fano_decode(
+            fsyms, _mettab_device(cfg, fsyms.device), FRAMEBITS, SYNC_STATE,
+            _tail(cfg.code), cfg.code, cfg.fano_params(),
+        )
+        fano_ok = profiling.read(site, res.goodbits == FRAMEBITS)
+        data[sub] = profiling.read(site, bits_to_bytes(res.bits))
+        good[sub] = fano_ok & profiling.read(site, verify_frame(res.bits))
+        decoder[sub] = np.where(fano_ok, DECODER_FANO, decoder[sub])
+        ok[sub] = fano_ok
+        cycles[sub] = profiling.read(site, res.cycles)
 
 
 def _viterbi_decode(fsyms: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
@@ -379,6 +385,7 @@ def viterbi_fallback_inplace(
     sub = np.nonzero(~ok)[0]
     if not cfg.viterbi_enabled or sub.size == 0:
         return
+    profiling.count("host_tail/viterbi_lanes", sub.size)
     _viterbi_patch(data, good, decoder, sub,
                    _gather_failed_lanes(starts, symbols, sub, nframes), cfg)
 
@@ -386,9 +393,11 @@ def viterbi_fallback_inplace(
 def _viterbi_patch(data, good, decoder, sub, fsyms, cfg) -> None:
     """Decode the frames ``fsyms`` of lanes ``sub`` by Viterbi and patch
     the result arrays."""
-    vbits = _viterbi_decode(fsyms, cfg)
-    data[sub] = bits_to_bytes(vbits).cpu().numpy()
-    good[sub] = verify_frame(vbits).cpu().numpy()
+    site = "host_tail/viterbi"
+    with profiling.span(site):
+        vbits = _viterbi_decode(fsyms, cfg)
+        data[sub] = profiling.read(site, bits_to_bytes(vbits))
+        good[sub] = profiling.read(site, verify_frame(vbits))
     decoder[sub] = DECODER_VITERBI
 
 
@@ -416,6 +425,7 @@ def _finish(buf: np.ndarray, symbols: torch.Tensor, B: int, nframes: int,
     """Unpack a block buffer and run the host tail (tier-2 Fano, Viterbi
     fallback) on failed lanes — shared by decode_block and the receive
     chain."""
+    profiling.count("host_tail/calls")
     data, good, decoder, ok, cycles, ss = unpack_block_buffer(buf, B, nframes)
     starts = ss[:, None] + SYNCBITS + FRAMESYMBOLS * np.arange(nframes)[None, :]
     if (~ok).any():

@@ -81,6 +81,7 @@ from isee3_decoder_tpu_torch.ops.channelizer_cuda import (
 )
 from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +169,7 @@ def receive_block_device_soft(
     """The device part of the chain: IQ → (packed decode buffer, soft
     symbols), both on the IQ's device.  The soft symbols stay there so
     the host tail gathers only the failed lanes' frame windows."""
+    profiling.count("driver/blocks")
     soft = _demod(iq, cfg)[0]
     return decode_block_device(soft, nframes, npos, cfg.decode), soft
 
@@ -504,28 +506,31 @@ def receive_blocks_pipelined(
         npos = FRAMESYMBOLS
 
     def finish(host, event, soft, B):
-        if event is not None:
-            event.synchronize()
+        # on the CPU the buffer is the host's already: nothing to wait for
+        profiling.read("driver/fetch", host if event is None else event)
         return _finish(host.numpy(), soft, B, nframes, cfg.decode)
 
     depth = max(depth, 1)
     ring: list[torch.Tensor | None] = [None] * (depth + 1)
     pending: collections.deque = collections.deque()
     for n, iq in enumerate(iq_blocks):
-        iq = _kernels.place(iq, device)
-        if iq.ndim == 1:
-            iq = iq[None, :]
-        buf, soft = receive_block_device_soft(iq, nframes, npos, cfg)
-        if buf.is_cuda:
-            slot = n % (depth + 1)
-            if ring[slot] is None or ring[slot].shape != buf.shape:
-                ring[slot] = torch.empty_like(buf, device="cpu", pin_memory=True)
-            host = ring[slot]
-            host.copy_(buf, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(buf.device))
-        else:
-            host, event = buf, None
+        with profiling.span("driver/submit", n):
+            iq = _kernels.place(iq, device)
+            if iq.ndim == 1:
+                iq = iq[None, :]
+            buf, soft = receive_block_device_soft(iq, nframes, npos, cfg)
+            if buf.is_cuda:
+                slot = n % (depth + 1)
+                if ring[slot] is None or ring[slot].shape != buf.shape:
+                    with profiling.span("driver/pin_ring"):
+                        ring[slot] = torch.empty_like(buf, device="cpu",
+                                                      pin_memory=True)
+                host = ring[slot]
+                host.copy_(buf, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(buf.device))
+            else:
+                host, event = buf, None
         pending.append((host, event, soft, iq.shape[0]))
         if len(pending) > depth:
             yield finish(*pending.popleft())

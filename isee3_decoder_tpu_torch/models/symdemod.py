@@ -25,6 +25,7 @@ import torch
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops import symbols as sym_ops
 from isee3_decoder_tpu_torch.ops.symbols import SymConfig
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 class SymWindowOut(NamedTuple):
@@ -71,26 +72,27 @@ def symdemod_scan_csum(
     nsym = cfg.nsymbols
     if firstsample0 is None:
         firstsample0 = initial_firstsample(cfg)
-    first = torch.as_tensor(firstsample0, dtype=torch.int64,
-                            device=csum.device).expand(B).clone()
+    first = profiling.upload("symdemod/first_sample", firstsample0, csum.device,
+                             torch.int64).expand(B).clone()
     outs = []
-    for _ in range(nwindows):
-        ts = sym_ops.timesearch_from_csum(
-            csum, first, cfg.halfclock, nsym, cfg.symbolclocks, cfg.noffsets
-        )
-        first = first + ts.symphase
-        integ = sym_ops.integrate_from_csum(
-            csum, first, cfg.halfclock, nsym, cfg.symbolclocks
-        )
-        gain = 100.0 / torch.sqrt(ts.maxenergy)  # symdemod.c:190 "Hack"
-        soft, _ = sym_ops.finish_demod(integ, gain)
-        outs.append(SymWindowOut(soft=soft, symphase=ts.symphase,
-                                 energy=ts.maxenergy, firstsample=first))
-        # firstsample += nsymbols * Symbolsamples with C int truncation
-        # of the double sum (symdemod.c:192)
-        first = torch.trunc(
-            first.to(torch.float64) + nsym * cfg.symbolsamples
-        ).to(torch.int64)
+    with profiling.span("symdemod/windows"):
+        for _ in range(nwindows):
+            ts = sym_ops.timesearch_from_csum(
+                csum, first, cfg.halfclock, nsym, cfg.symbolclocks, cfg.noffsets
+            )
+            first = first + ts.symphase
+            integ = sym_ops.integrate_from_csum(
+                csum, first, cfg.halfclock, nsym, cfg.symbolclocks
+            )
+            gain = 100.0 / torch.sqrt(ts.maxenergy)  # symdemod.c:190 "Hack"
+            soft, _ = sym_ops.finish_demod(integ, gain)
+            outs.append(SymWindowOut(soft=soft, symphase=ts.symphase,
+                                     energy=ts.maxenergy, firstsample=first))
+            # firstsample += nsymbols * Symbolsamples with C int truncation
+            # of the double sum (symdemod.c:192)
+            first = torch.trunc(
+                first.to(torch.float64) + nsym * cfg.symbolsamples
+            ).to(torch.int64)
     if not outs:
         empty = torch.empty((0, B), dtype=torch.int64, device=csum.device)
         return first, SymWindowOut(

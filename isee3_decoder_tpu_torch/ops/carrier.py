@@ -36,6 +36,7 @@ import torch
 
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops.syncword import argmax_last
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,7 +233,7 @@ def _fast_search_ok(carry: PMCarry, cfg: PMConfig) -> bool:
         & (last > first)
         & (last - first <= _window_bins(cfg) - 2)
     )
-    return bool(ok.all())
+    return profiling.read("front_end/lock_check", ok.all())
 
 
 def _cexp(num: torch.Tensor, den: int) -> torch.Tensor:
@@ -527,16 +528,17 @@ def pm_demod_scan(
     n = iq_blocks.shape[2] // 2 if raw else iq_blocks.shape[2]
     baseband = torch.empty((T, B, n), dtype=torch.int16, device=iq_blocks.device)
     freqs, cn0s, locks = [], [], []
-    for t in range(T):
-        if raw:
-            carry, o = pm_demod_block_raw(carry, iq_blocks[:, t], cfg, flip,
-                                          out=baseband[t])
-        else:
-            carry, o = pm_demod_block(carry, iq_blocks[:, t], cfg)
-            baseband[t] = o.baseband
-        freqs.append(o.carrier_freq)
-        cn0s.append(o.cn0)
-        locks.append(o.locked)
+    with profiling.span("front_end/pm_blocks"):
+        for t in range(T):
+            if raw:
+                carry, o = pm_demod_block_raw(carry, iq_blocks[:, t], cfg, flip,
+                                              out=baseband[t])
+            else:
+                carry, o = pm_demod_block(carry, iq_blocks[:, t], cfg)
+                baseband[t] = o.baseband
+            freqs.append(o.carrier_freq)
+            cn0s.append(o.cn0)
+            locks.append(o.locked)
     return carry, PMBlockOut(
         baseband=baseband,
         carrier_freq=torch.stack(freqs),
@@ -595,16 +597,19 @@ def pm_demod_scan_csum(
 
     B, T = raw_blocks.shape[0], raw_blocks.shape[1]
     n = raw_blocks.shape[2] // 2
-    carry1, out0 = pm_demod_block_raw(carry, raw_blocks[:, 0], cfg, flip)
-    init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
-                        out0.carrier_freq, carry1.search_center], dim=1)
-    csum, stat, tots = carrier_cuda.pm_scan_locked_fused(
-        pack_raw(raw_blocks), out0.baseband, init,
-        cfg.samprate, cfg.actual_binsize, cfg.search_width, cfg.cn0_threshold,
-        _window_bins(cfg), flip,
-        dop=cfg.doppler_rate / (cfg.samprate * cfg.samprate), tail=tail,
-    )
-    if bool((stat[:, 1:, 3] > 0).all()):
+    with profiling.span("front_end/pm_blocks"):
+        carry1, out0 = pm_demod_block_raw(carry, raw_blocks[:, 0], cfg, flip)
+        init = torch.stack([torch.zeros_like(out0.cn0), out0.cn0,
+                            out0.carrier_freq, carry1.search_center], dim=1)
+        csum, stat, tots = carrier_cuda.pm_scan_locked_fused(
+            pack_raw(raw_blocks), out0.baseband, init,
+            cfg.samprate, cfg.actual_binsize, cfg.search_width,
+            cfg.cn0_threshold, _window_bins(cfg), flip,
+            dop=cfg.doppler_rate / (cfg.samprate * cfg.samprate), tail=tail,
+        )
+        fused_ok = profiling.read("front_end/scan_fallback",
+                                  (stat[:, 1:, 3] > 0).all())
+    if fused_ok:
         freq, cn0 = stat[:, :, 2].T, stat[:, :, 1].T
         carry = PMCarry(search_center=stat[:, T - 1, 5], cn0=stat[:, T - 1, 1])
     else:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 def bytes_to_bits(data: torch.Tensor) -> torch.Tensor:
@@ -55,9 +56,9 @@ def encode_bits(
     lead = bits.shape[:-1]
     nbits = bits.shape[-1]
     if isinstance(encstate, int):
-        hist = torch.tensor(
-            [(encstate >> j) & 1 for j in range(kb - 2, -1, -1)],
-            dtype=torch.int32, device=dev,
+        hist = profiling.upload(
+            "encode/state", [(encstate >> j) & 1 for j in range(kb - 2, -1, -1)],
+            dev, torch.int32,
         ).expand(*lead, kb - 1)
     else:
         if kb > 62:

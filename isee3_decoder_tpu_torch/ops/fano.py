@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 class FanoResult(NamedTuple):
@@ -201,7 +202,7 @@ def _walk_inputs(
     def lanes(v) -> torch.Tensor:
         if word == torch.int64 and isinstance(v, int):
             v = _signed64(v)
-        return torch.as_tensor(v, dtype=word, device=dev).expand(B)
+        return profiling.upload("fano/registers", v, dev, word).expand(B)
 
     # root node (fano.c:81-107): the encoder hypothesis only matters mod
     # 2^kbits, which frees bit kbits of the tape word for the branch index

@@ -41,6 +41,7 @@ import torch
 from isee3_decoder_tpu_torch.config import ACTUALCLOCK
 from isee3_decoder_tpu_torch.ops.prefix_cuda import prefix_sum_blocks
 from isee3_decoder_tpu_torch.ops.syncword import argmax_first
+from isee3_decoder_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,9 +187,10 @@ def integrate_from_csum(
     rel = trial_edges(halfclock, nsymbols, symbolclocks)
     flo = np.floor(rel)
     frac = rel - flo
-    flo_d = torch.as_tensor(flo.astype(np.int64), device=dev)
-    up_d = torch.as_tensor((frac > 0.5).astype(np.int64), device=dev)
-    tie_d = torch.as_tensor((frac == 0.5).astype(np.int64), device=dev)
+    site = "symdemod/trial_edges"
+    flo_d = profiling.upload(site, flo.astype(np.int64), dev)
+    up_d = profiling.upload(site, (frac > 0.5).astype(np.int64), dev)
+    tie_d = profiling.upload(site, (frac == 0.5).astype(np.int64), dev)
     base = first[:, None] + flo_d[None, :]
     abs_edges = base + up_d[None, :] + tie_d[None, :] * (base & 1)
     g = (take_fill if fill else _gather_clamped)(csum, abs_edges)
@@ -222,8 +224,8 @@ def timesearch_from_csum(
     half = noffsets // 2
     first = torch.as_tensor(firstsample, dtype=torch.int64, device=dev).expand(B)
     offsets = torch.arange(-half, noffsets - half, dtype=torch.int64, device=dev)
-    rel = torch.as_tensor(search_edges(halfclock, nsymbols, symbolclocks),
-                          device=dev)
+    rel = profiling.upload("symdemod/search_edges",
+                           search_edges(halfclock, nsymbols, symbolclocks), dev)
     step = noffsets if max_entries is None else max(max_entries // rel.numel(), 1)
     gather = take_fill if fill else _gather_clamped
     parts = []

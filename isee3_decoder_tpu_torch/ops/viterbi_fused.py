@@ -29,6 +29,7 @@ from isee3_decoder_tpu_torch.ops.viterbi_inplace import (
     StreamState,
     chainback_inplace,
 )
+from isee3_decoder_tpu_torch.utils import profiling
 
 #: share of the device's free memory a decision tape may take by default
 #: (the rest covers the metrics and whatever the caller holds resident)
@@ -160,7 +161,8 @@ def chainback_planes(dec: torch.Tensor, nbits: int,
     (XLA there): one (B,)-sized gather per step."""
     if dec.shape[1] != nbits:
         raise ValueError(f"tape holds {dec.shape[1]} planes, not {nbits}")
-    return chainback_inplace(dec.transpose(0, 1), nbits, endstate, code)
+    with profiling.span("host_tail/traceback"):
+        return chainback_inplace(dec.transpose(0, 1), nbits, endstate, code)
 
 
 def stream_update_fused(state: StreamState, syms: torch.Tensor,
@@ -205,10 +207,11 @@ def decode_frame_fused(syms: torch.Tensor, nbits: int,
     dev = syms.device
     n = code.nstates
     _check_decision_budget(B, nbits, code, dev)
-    start = (torch.as_tensor(start_state, dtype=torch.int64, device=dev)
+    start = (profiling.upload("viterbi/states", start_state, dev, torch.int64)
              & code.state_mask).expand(B)
     metrics = torch.full((B, n), START_BIAS, dtype=torch.int16, device=dev)
-    metrics[torch.arange(B, device=dev), start] = 0
+    metrics[torch.arange(B, device=dev), start] = profiling.upload(
+        "viterbi/states", 0, dev, torch.int16)
     dec = torch.empty((B, nbits, n // 32), dtype=torch.int32, device=dev)
     _update_frame_planes(metrics, syms, nbits, code, dec)
     return chainback_planes(dec, nbits, end_state, code)

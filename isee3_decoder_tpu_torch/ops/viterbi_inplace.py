@@ -28,6 +28,7 @@ import torch
 
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
+from isee3_decoder_tpu_torch.utils import profiling
 
 #: Starting-state bias: unknown states start this much worse than the
 #: known start state (ops/viterbi.py:53; viterbi224_sse2.c:44-50).
@@ -90,7 +91,7 @@ def chainback_inplace(
     w = code.k - 1
     k = code.k
     dev = decisions.device
-    s = (torch.as_tensor(endstate, dtype=torch.int64, device=dev)
+    s = (profiling.upload("viterbi/states", endstate, dev, torch.int64)
          & code.state_mask).expand(B).clone()
     out = torch.empty((nbits, B), dtype=torch.uint8, device=dev)
     for t in range(nbits - 1, -1, -1):

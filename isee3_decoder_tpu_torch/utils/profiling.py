@@ -1,94 +1,112 @@
-"""Light timing and profiling helpers (the JAX package's
-utils/profiling.py).
+"""Spans and counters inside the receive chain, and the Fano cycle
+histogram.
 
-The reference's measurement machinery (SURVEY.md §5.1): getrusage-style
-wall timing around decode calls (vtest224.c:115-120), bits-per-second
-reporting and Fano cycle accounting, plus a torch.profiler trace for
-kernel-level inspection.
+Spans.  ``span(name)`` marks a stretch of the chain's host work (a
+loop, a stage of the host tail) as a ``torch.profiler.record_function``,
+so it lands in the profiler's Chrome trace on the same clock as the
+card's activity.  Spans are on only between ``enable(True)`` and
+``enable(False)``; off, ``span`` returns one shared no-op context after
+a single global test.  Names are ``<layer>/<what>``, the layer being the
+benchmark's layer key (``driver``, ``front_end``, ``symdemod``,
+``decode``, ``host_tail``); a read or upload site in an op that several
+layers call (``encode``, ``fano``, ``viterbi``) is named by the op.
 
-Work on the card is asynchronous, so a wall-clock section must wait for
-it before it stops the clock: ``sync`` synchronizes the device of a CUDA
-tensor and returns a host scalar of it.
+Reads.  ``read(site, x)`` is the one path by which the chain waits on
+the card for a value: a 0-dim bool tensor comes back as a ``bool``,
+any other tensor as a numpy array, and a ``torch.cuda.Event`` is waited
+on.  Each call adds one to ``HOST_READS[site]``, whether spans are on or
+not, and, with spans on, runs inside a ``read/<site>`` span.
+
+Uploads.  A copy of host data to the card from pageable memory waits
+for the stream to drain as a read does.  ``upload(site, x, device)``
+is the chain's path for such copies: ``torch.as_tensor`` counted in
+``HOST_UPLOADS[site]`` and, with spans on, inside an ``upload/<site>``
+span.
+
+``COUNTS`` counts work by name (blocks, host tails, lanes sent to a
+host-tail stage).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+#: read site → device-to-host reads since the last reset()
+HOST_READS: dict[str, int] = {}
+#: upload site → host-to-device copies of host data since the last reset()
+HOST_UPLOADS: dict[str, int] = {}
+#: what was counted → how much since the last reset(): "driver/blocks"
+#: device parts submitted, "host_tail/calls" host tails run,
+#: "host_tail/tier2_lanes" and "host_tail/viterbi_lanes" lanes sent to
+#: the tier-2 Fano re-run and to the Viterbi fallback
+COUNTS: dict[str, int] = {}
 
-def _first_tensor(x):
+_on = False
+_OFF = contextlib.nullcontext()
+
+
+def enable(on: bool) -> None:
+    """Turn the chain's spans on or off (counters always count)."""
+    global _on
+    _on = bool(on)
+
+
+def enabled() -> bool:
+    return _on
+
+
+def span(name: str, block: int | None = None):
+    """A ``record_function`` span ``name`` (``block``: the block's
+    sequence number, in the span's args) while spans are on; else a
+    shared no-op context."""
+    if not _on:
+        return _OFF
+    return torch.profiler.record_function(
+        name, None if block is None else f"block={block}")
+
+
+def count(what: str, n: int = 1) -> None:
+    COUNTS[what] = COUNTS.get(what, 0) + n
+
+
+def _fetch(x):
     if isinstance(x, torch.Tensor):
-        return x
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for item in x:
-            found = _first_tensor(item)
-            if found is not None:
-                return found
+        if x.ndim == 0 and x.dtype == torch.bool:
+            return bool(x)
+        return x.cpu().numpy()
+    x.synchronize()
     return None
 
 
-def sync(x) -> float:
-    """Wait for the device of the first tensor in ``x`` (a tensor, or
-    nested tuples, lists and dicts of them) and return its first element
-    as a host float."""
-    leaf = _first_tensor(x)
-    if leaf is None:
-        raise ValueError("sync: no tensor in its argument")
-    if leaf.is_cuda:
-        torch.cuda.synchronize(leaf.device)
-    return float(leaf.reshape(-1)[0])
+def read(site: str, x):
+    """Wait for ``x`` on the host: a 0-dim bool tensor → bool, another
+    tensor → numpy array, an event → None once it has completed."""
+    HOST_READS[site] = HOST_READS.get(site, 0) + 1
+    if not _on:
+        return _fetch(x)
+    with torch.profiler.record_function("read/" + site):
+        return _fetch(x)
 
 
-@dataclass
-class Timer:
-    """Accumulating section timer (the rusage pattern, vtest224.c)."""
-
-    sections: dict = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_on is not None:
-                sync(sync_on)
-            self.sections[name] = self.sections.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def report(self) -> str:
-        total = sum(self.sections.values())
-        lines = [f"total {total:.3f}s"]
-        for k, v in sorted(self.sections.items(), key=lambda kv: -kv[1]):
-            lines.append(f"  {k:<24} {v:8.3f}s {100*v/max(total,1e-12):5.1f}%")
-        return "\n".join(lines)
-
-    def bits_per_second(self, name: str, bits: int) -> float:
-        """decoder-speed reporting (vtest224.c:180-182)."""
-        return bits / max(self.sections.get(name, 0.0), 1e-12)
+def upload(site: str, x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)`` of host data ``x`` (a number,
+    a list or a numpy array); a tensor passes through uncounted."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    HOST_UPLOADS[site] = HOST_UPLOADS.get(site, 0) + 1
+    if not _on:
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    with torch.profiler.record_function("upload/" + site):
+        return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-@contextlib.contextmanager
-def torch_trace(logdir: str):
-    """Profile the block with torch.profiler (host ops, and the card's
-    kernels where there is a card) and write its Chrome trace to
-    ``logdir/trace.json``; yields the profiler."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+def reset() -> None:
+    HOST_READS.clear()
+    HOST_UPLOADS.clear()
+    COUNTS.clear()
 
 
 def cycle_histogram(cycles: np.ndarray, nbits: int, nbuckets: int = 8) -> dict:
