@@ -822,7 +822,9 @@ def check_viterbi(dev) -> dict:
     """Phase 2's K5/K6 part: one cycle at B=2, then whole-frame decodes
     of 2 noisy K=24 frames through the kernels and through their plain
     versions (bits exact), with the frame's ACS and traceback timed
-    apart."""
+    apart; then the traceback kernel against its plain twin (bits exact)
+    on the tapes of 2 and of 13 frames, the 13 a threshold block's
+    Viterbi fallback decodes."""
     import torch
 
     from isee3_decoder_tpu_torch import _kernels
@@ -839,12 +841,17 @@ def check_viterbi(dev) -> dict:
 
     rec = viterbi_cycle_check(dev, 2, seed=24)
     rng = np.random.default_rng(6)
-    sent = bytes_to_bits(torch.as_tensor(random_frames(rng, 2), device=dev))
-    syms, _ = encode_bits(sent, SYNC_STATE, code)
-    noise = torch.as_tensor(rng.normal(0.0, 80.0, syms.shape),
-                            dtype=torch.float32, device=dev)
-    soft = torch.clamp(torch.round((syms.float() * 2 - 1) * 100 + noise) + 128,
-                       0, 255).to(torch.uint8)
+
+    def noisy_frames(n: int):
+        sent = bytes_to_bits(torch.as_tensor(random_frames(rng, n), device=dev))
+        syms, _ = encode_bits(sent, SYNC_STATE, code)
+        noise = torch.as_tensor(rng.normal(0.0, 80.0, syms.shape),
+                                dtype=torch.float32, device=dev)
+        return sent, torch.clamp(torch.round((syms.float() * 2 - 1) * 100
+                                             + noise) + 128, 0,
+                                 255).to(torch.uint8)
+
+    sent, soft = noisy_frames(2)
     bits_k = decode_frame_fused(soft, FRAMEBITS, SYNC_STATE, SYNC_STATE, code)
     start, end = _events()
     start.record()
@@ -857,27 +864,51 @@ def check_viterbi(dev) -> dict:
     require(torch.equal(bits_k, bits_p), "K=24 frame decode: kernel path and "
             "plain path give different bits")
 
-    def metrics0():
-        m = torch.full((2, code.nstates), START_BIAS, dtype=torch.int16,
+    def metrics0(B):
+        m = torch.full((B, code.nstates), START_BIAS, dtype=torch.int16,
                        device=dev)
         m[:, SYNC_STATE & code.state_mask] = 0
         return m
 
-    m = metrics0()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, dec, _ = update_frame_fused_planes(m, soft, FRAMEBITS, code)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    chainback_planes(dec, FRAMEBITS, SYNC_STATE, code)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    frame = {"frames": 2, "acs_ms": round((t1 - t0) * 1e3, 3),
-             "chainback_ms": round((t2 - t1) * 1e3, 3),
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def traceback_times(dec) -> dict:
+        """The traceback of a tape through the kernel and through its
+        plain twin, each after a sync (host clock), the kernel also by
+        CUDA events over 10 calls; the bits must be equal."""
+        bits_tk, ms_k = host_ms(
+            lambda: chainback_planes(dec, FRAMEBITS, SYNC_STATE, code))
+        with _kernels.plain_reference():
+            bits_tp, ms_p = host_ms(
+                lambda: chainback_planes(dec, FRAMEBITS, SYNC_STATE, code))
+        require(torch.equal(bits_tk, bits_tp), f"traceback of {dec.shape[0]} "
+                "frames: kernel and plain twin give different bits")
+        return {"chainback_ms": round(ms_k, 3),
+                "chainback_plain_ms": round(ms_p, 3),
+                "traceback_kernel_ms": round(cuda_ms(
+                    lambda: chainback_planes(dec, FRAMEBITS, SYNC_STATE, code),
+                    10), 4)}
+
+    m = metrics0(2)
+    (_, dec, _), acs_ms = host_ms(
+        lambda: update_frame_fused_planes(m, soft, FRAMEBITS, code))
+    frame = {"frames": 2, "acs_ms": round(acs_ms, 3), **traceback_times(dec),
              "plain_decode_ms": round(plain_ms, 3),
              "bit_errors": int((bits_k != sent.to(torch.uint8)).sum())}
     log(f"  K5/K6 decode of 2 K=24 frames: kernel == plain; "
         f"{json.dumps(frame)}")
+    del dec
+    _, dec, _ = update_frame_fused_planes(metrics0(13), noisy_frames(13)[1],
+                                          FRAMEBITS, code)
+    lanes = {"frames": 13, **traceback_times(dec)}
+    del dec
+    log(f"  traceback of 13 K=24 frames: kernel == plain; {json.dumps(lanes)}")
+    torch.cuda.empty_cache()
     return rec
 
 

@@ -48,6 +48,7 @@ LAUNCHES: dict[str, int] = {
     "windowed_dft": 0,
     "pm_scan": 0,
     "viterbi_acs": 0,
+    "viterbi_traceback": 0,
 }
 #: pipeline stage ("channelizer", "pm", "csum", "fano", "viterbi", and
 #: "search" for K8, "pm_scan" for K9) → "cuda" or "torch", last run;
@@ -59,7 +60,8 @@ LAUNCHES: dict[str, int] = {
 #: "pm_scan" reads "fallback" when the fused scan's result was discarded
 #: for the block scan (carrier.pm_demod_scan_csum); "viterbi_path" reads
 #: "classic" (K10, ops/viterbi) or "fused" (K5/K6) for the Viterbi
-#: decoder that ran on the card
+#: decoder that ran on the card; "traceback" reads "cuda" or "torch" for
+#: the fused decoder's traceback (viterbi_cuda.traceback)
 backend_used: dict[str, str] = {}
 
 _lib: ctypes.CDLL | None = None
@@ -118,6 +120,8 @@ _SIGNATURES = {
     # elem_size, q1, q2, g1flip, g2flip, stream
     "viterbi_acs_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P),
+    # dec, ends, end, out, B, w, nbits, stream
+    "viterbi_traceback_launch": (_P, _P, _I, _P, _I, _I, _I, _P),
 }
 
 

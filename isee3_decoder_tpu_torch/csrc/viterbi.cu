@@ -41,6 +41,12 @@
 //     decisions by lane ballots (see b_stage below): ~6 instructions a
 //     pair, under the 20 counted above.  Each block also writes its row's
 //     minimum for the next cycle's base.
+//
+// Beside them, the traceback over the tape K5/K6 write
+// (viterbi_traceback_kernel, at the end of this file).  It replaces no
+// TPU kernel: the JAX package traces back in jnp (viterbi_pallas_fused.py
+// :620 chainback_planes), which the port ran as ~25 eager torch ops a
+// step, 1024 steps a frame.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -771,4 +777,69 @@ extern "C" int viterbi_b_launch(int16_t* metrics, const int32_t* syms,
       return (int)cudaErrorInvalidValue;
   }
 #undef VB_GO
+}
+
+// ---- the traceback over the fused decoder's tape -----------------------
+// dec (B, nbits, 2^W/32) int32, contiguous, plane t in layout P_{t+1} (the
+// contract of ops/viterbi_inplace.py); out (B, nbits) uint8.  From the end
+// state s of step t the walk is out[t] = s & 1, then the decision bit of s
+// at plane t, position rotr^((t+1) mod W)(s), enters at the top:
+// s <- (bit << (W-1)) | (s >> 1).  Each step's read depends on the last, so
+// what bounds a frame is the chain of dependent loads (a 1 GiB tape at
+// K = 24: every load misses the caches), not bytes or operations.  One
+// warp per frame looks TB_LOOK steps ahead: from s at step t, the state at
+// step t-d is (s >> d) | (c << (W-d)) for the 2^d values c of the d bits
+// still unknown, so lanes 2^d - 1 + c (d < TB_LOOK, 31 lanes) load the
+// decision word of every candidate of the next TB_LOOK steps at once, a
+// ballot gathers the 31 bits, and every lane picks the true path through
+// them: one round trip of memory a TB_LOOK steps, not one a step.  The
+// output bits of those steps are bits 0..TB_LOOK-1 of s already (W > 5).
+#define TB_LOOK 5
+#define TB_THREADS 128
+
+__global__ void __launch_bounds__(TB_THREADS) viterbi_traceback_kernel(
+    const uint32_t* __restrict__ dec, const long long* __restrict__ ends,
+    unsigned end, uint8_t* __restrict__ out, int B, int w, int nbits) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (TB_THREADS / 32) + (threadIdx.x >> 5);
+  if (b >= B) return;  // a whole warp: the ballots below stay full
+  const unsigned smask = (1u << w) - 1u;
+  unsigned s = (ends ? (unsigned)ends[b] : end) & smask;
+  const long long plane = 1ll << (w - 5);  // words a plane
+  const uint32_t* frame = dec + (long long)b * nbits * plane;
+  uint8_t* o = out + (long long)b * nbits;
+  // this lane's candidate: depth d (lanes 2^d - 1 .. 2^(d+1) - 2), bits c
+  const int d = 31 - __clz(lane + 1);
+  const unsigned c = (unsigned)(lane + 1 - (1 << d));
+  for (int t = nbits - 1; t >= 0; t -= TB_LOOK) {
+    const int td = t - d;
+    unsigned bit = 0u;
+    if (d < TB_LOOK && td >= 0) {
+      const unsigned p = rotr_w((s >> d) | (c << (w - d)), (td + 1) % w, w);
+      const unsigned row = p >> 7;
+      bit = (__ldg(frame + td * plane + (row >> 5) * 128 + (p & 127)) >>
+             (row & 31)) & 1u;
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, bit);
+    if (lane < TB_LOOK && t - lane >= 0) o[t - lane] = (uint8_t)((s >> lane) & 1u);
+    unsigned cc = 0u;
+#pragma unroll
+    for (int k = 0; k < TB_LOOK; ++k)
+      cc |= ((bits >> ((1u << k) - 1u + cc)) & 1u) << k;
+    s = (s >> TB_LOOK) | (cc << (w - TB_LOOK));
+  }
+}
+
+// ends: (B,) int64 end states on the device, or null for the one end
+// state ``end`` of every frame.  B >= 1, nbits >= 1, 13 <= w <= 23.
+extern "C" int viterbi_traceback_launch(const int32_t* dec,
+                                        const long long* ends, int end,
+                                        uint8_t* out, int B, int w, int nbits,
+                                        void* stream) {
+  if (B < 1 || nbits < 1 || w < 13 || w > 23) return (int)cudaErrorInvalidValue;
+  const int per = TB_THREADS / 32;
+  viterbi_traceback_kernel<<<(B + per - 1) / per, TB_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      (const uint32_t*)dec, ends, (unsigned)end, out, B, w, nbits);
+  return (int)cudaGetLastError();
 }

@@ -26,6 +26,11 @@ Both wrappers update ``metrics`` IN PLACE (the JAX functions return new
 arrays) and write the decision planes into ``dec`` — a caller's (B,
 nsteps, n/32) int32 view, so a frame's tape is filled where it lies, with
 no concatenation.  Decision words are int32 (torch has no uint32).
+
+``traceback`` walks a whole frame's tape back in one launch of
+``viterbi_traceback_kernel`` (csrc/viterbi.cu); it replaces no TPU kernel
+(the JAX package's traceback is jnp, viterbi_pallas_fused.py:620).  Its
+plain twin is ops/viterbi_inplace.chainback_inplace.
 """
 
 from __future__ import annotations
@@ -37,7 +42,11 @@ import torch
 
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
-from isee3_decoder_tpu_torch.ops.viterbi_inplace import _branch_masks, _rotr
+from isee3_decoder_tpu_torch.ops.viterbi_inplace import (
+    _branch_masks,
+    _rotr,
+    chainback_inplace,
+)
 
 
 def _geometry(code: CodeSpec) -> tuple[int, int, int]:
@@ -403,3 +412,44 @@ def cycle_b(metrics, syms, code=DEFAULT_CODE, nsteps=None, dec=None):
     _kernels.count_launch("viterbi_b")
     _kernels.note_backend("viterbi", "cuda")
     return metrics, dec, mins
+
+
+def traceback(dec, nbits, endstate, code=DEFAULT_CODE):
+    """The traceback over a fused decoder's tape: ``dec`` (B, nbits,
+    2^W/32) int32, contiguous, plane t in P_{t+1} layout, from
+    ``endstate`` — an int, or an integer tensor on the tape's device of
+    one end state or one a frame — to (B, nbits) uint8 bits.  A CUDA tape
+    takes one launch of ``viterbi_traceback_kernel``, the int end state
+    as an argument and a tensor as a pointer (nothing is copied from the
+    host); a CPU tape, or any under plain_reference(), takes
+    chainback_inplace."""
+    _check_code(code)
+    shape = (nbits, code.nstates // 32)
+    if dec.dtype != torch.int32 or dec.ndim != 3 or tuple(dec.shape[1:]) != shape:
+        raise ValueError(f"traceback: the tape must be (B, {nbits}, "
+                         f"{code.nstates // 32}) int32 planes, not "
+                         f"{tuple(dec.shape)} {dec.dtype}")
+    if not dec.is_contiguous():
+        raise ValueError("traceback: the tape must be contiguous")
+    if isinstance(endstate, torch.Tensor) and endstate.device != dec.device:
+        raise ValueError("traceback: an end-state tensor must lie on the "
+                         "tape's device")
+    if not _kernels.use_kernel(dec):
+        _kernels.note_backend("traceback", "torch")
+        return chainback_inplace(dec.transpose(0, 1), nbits, endstate, code)
+    B = dec.shape[0]
+    out = torch.empty((B, nbits), dtype=torch.uint8, device=dec.device)
+    if not out.numel():
+        return out
+    ends, end = None, 0
+    if isinstance(endstate, torch.Tensor):
+        ends = endstate.to(torch.int64).expand(B).contiguous()
+    else:
+        end = int(endstate) & code.state_mask
+    err = _kernels.lib().viterbi_traceback_launch(
+        dec.data_ptr(), None if ends is None else ends.data_ptr(), end,
+        out.data_ptr(), B, code.k - 1, nbits, _kernels.stream_ptr(dec.device))
+    _kernels.check(err, "viterbi_traceback_launch")
+    _kernels.count_launch("viterbi_traceback")
+    _kernels.note_backend("traceback", "cuda")
+    return out

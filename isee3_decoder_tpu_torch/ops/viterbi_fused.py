@@ -23,12 +23,13 @@ import torch
 
 from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.config import DEFAULT_CODE, CodeSpec
-from isee3_decoder_tpu_torch.ops.viterbi_cuda import _geometry, cycle_a, cycle_b
-from isee3_decoder_tpu_torch.ops.viterbi_inplace import (
-    START_BIAS,
-    StreamState,
-    chainback_inplace,
+from isee3_decoder_tpu_torch.ops.viterbi_cuda import (
+    _geometry,
+    cycle_a,
+    cycle_b,
+    traceback,
 )
+from isee3_decoder_tpu_torch.ops.viterbi_inplace import START_BIAS, StreamState
 from isee3_decoder_tpu_torch.utils import profiling
 
 #: share of the device's free memory a decision tape may take by default
@@ -157,12 +158,11 @@ def chainback_planes(dec: torch.Tensor, nbits: int,
                      endstate: int | torch.Tensor,
                      code: CodeSpec = DEFAULT_CODE) -> torch.Tensor:
     """Traceback over a (B, nbits, n/32) tape (plane t in P_{t+1}
-    layout) → (B, nbits) uint8 bits.  Plain torch, as in the JAX package
-    (XLA there): one (B,)-sized gather per step."""
-    if dec.shape[1] != nbits:
-        raise ValueError(f"tape holds {dec.shape[1]} planes, not {nbits}")
+    layout) → (B, nbits) uint8 bits: one launch of the traceback kernel
+    on the card, its plain twin (one (B,)-sized gather a step, as the JAX
+    package's jnp) on the CPU (viterbi_cuda.traceback)."""
     with profiling.span("host_tail/traceback"):
-        return chainback_inplace(dec.transpose(0, 1), nbits, endstate, code)
+        return traceback(dec, nbits, endstate, code)
 
 
 def stream_update_fused(state: StreamState, syms: torch.Tensor,

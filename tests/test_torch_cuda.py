@@ -19,7 +19,7 @@ from isee3_decoder_tpu_torch.ops import carrier, carrier_cuda, fano_cuda
 from isee3_decoder_tpu_torch.ops import prefix_cuda
 from isee3_decoder_tpu_torch.ops import channelizer, channelizer_cuda
 from isee3_decoder_tpu_torch.ops import viterbi_cuda, viterbi_fused
-from isee3_decoder_tpu_torch.ops import viterbi, viterbi_acs_cuda
+from isee3_decoder_tpu_torch.ops import viterbi, viterbi_acs_cuda, viterbi_inplace
 from isee3_decoder_tpu_torch.models import legacy
 from isee3_decoder_tpu_torch.ops.encode import encode_bits
 from isee3_decoder_tpu_torch.ops.fano import (
@@ -698,6 +698,62 @@ def test_decode_frame_fused_kernels_exact(dev):
     got = viterbi_fused.decode_frame_fused(soft, nbits, 0, 0, K18)
     with _kernels.plain_reference():
         want = viterbi_fused.decode_frame_fused(soft, nbits, 0, 0, K18)
+    assert torch.equal(got, want)
+    assert torch.equal(got, bits.to(torch.uint8))
+
+
+@pytest.mark.parametrize("ends", ["int", "tensor"])
+@pytest.mark.parametrize("nbits", [5, 1000, 1024])
+@pytest.mark.parametrize("code,B", [(K15, 1), (K15, 13), (K15, 33),
+                                    (DEFAULT_CODE, 1), (DEFAULT_CODE, 2)],
+                         ids=["K15-1", "K15-13", "K15-33", "MCQLI24-1",
+                              "MCQLI24-2"])
+def test_traceback_kernel_matches_plain(dev, code, B, nbits, ends):
+    """The traceback kernel against its plain twin chainback_inplace, bit
+    for bit, on random tapes (any tape is a valid input), from one end
+    state or one a frame, at nbits a multiple of W or not; one launch a
+    call.  K = 24 takes 1 GiB of tape a 1024-bit frame, hence B <= 2."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(code.k * 10000 + B * 100 + nbits)
+    dec = torch.empty((B, nbits, code.nstates // 32), dtype=torch.int32,
+                      device=dev)
+    for b in range(B):  # the low 32 bits of each int64: any uint32 word
+        dec[b] = torch.randint(0, 2**32, dec.shape[1:], generator=gen,
+                               device=dev, dtype=torch.int64).to(torch.int32)
+    end = (torch.randint(0, 2**31, (B,), generator=gen, device=dev)
+           if ends == "tensor" else 0x5A5A5A5 & code.state_mask)
+    n0 = _kernels.LAUNCHES["viterbi_traceback"]
+    got = viterbi_cuda.traceback(dec, nbits, end, code)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_traceback"] == n0 + 1
+    assert _kernels.backend_used["traceback"] == "cuda"
+    want = viterbi_inplace.chainback_inplace(dec.transpose(0, 1), nbits, end,
+                                             code)
+    assert got.shape == (B, nbits) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+
+
+def test_decode_frame_fused_traceback_kernel_mcqli24(dev):
+    """Two noisy 1024-bit MCQLI-24 frames from SYNC_STATE to state 0 (the
+    zero tail): the kernel path (K5, K6, one traceback launch) gives the
+    plain path's bits and the sent ones."""
+    rng = np.random.default_rng(25)
+    nbits, B = 1024, 2
+    bits = torch.as_tensor(rng.integers(0, 2, (B, nbits)), device=dev)
+    bits[:, -(DEFAULT_CODE.k - 1):] = 0
+    syms, _ = encode_bits(bits, SYNC_STATE, DEFAULT_CODE)
+    noise = torch.as_tensor(rng.normal(0, 60, syms.shape), device=dev)
+    soft = torch.clamp(torch.round((syms.double() * 2 - 1) * 100 + noise) + 128,
+                       0, 255).to(torch.uint8)
+    n0 = _kernels.LAUNCHES["viterbi_traceback"]
+    got = viterbi_fused.decode_frame_fused(soft, nbits, SYNC_STATE, 0)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["viterbi_traceback"] == n0 + 1
+    assert _kernels.backend_used["traceback"] == "cuda"
+    with _kernels.plain_reference():
+        want = viterbi_fused.decode_frame_fused(soft, nbits, SYNC_STATE, 0)
+    assert _kernels.backend_used["traceback"] == "torch"
+    assert _kernels.LAUNCHES["viterbi_traceback"] == n0 + 1
     assert torch.equal(got, want)
     assert torch.equal(got, bits.to(torch.uint8))
 

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: the fused Viterbi slice — geometry and
 column planes, the plain versions of kernels K5/K6 (``cycle_a_plain`` /
 ``cycle_b_plain``) against the JAX Pallas kernels in interpret mode,
-whole-frame decodes, the streaming path and the decision-memory guard.
+whole-frame decodes, the streaming path, the decision-memory guard and
+the traceback wrapper's checks.
 Integer paths: everything is exact."""
 
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ from isee3_decoder_tpu import config as jcfg
 from isee3_decoder_tpu.ops import encode_bits, viterbi
 from isee3_decoder_tpu.ops import viterbi_inplace as jvip
 from isee3_decoder_tpu.ops import viterbi_pallas_fused as jvf
+from isee3_decoder_tpu_torch import _kernels
 from isee3_decoder_tpu_torch.ops import viterbi_cuda as tvc
 from isee3_decoder_tpu_torch.ops import viterbi_fused as tvf
 from isee3_decoder_tpu_torch.ops import viterbi_inplace as tvip
@@ -250,3 +252,41 @@ def test_kernel_wrappers_check_their_inputs():
         tvc.cycle_b(torch.zeros((1, code.nstates), dtype=torch.int16),
                     torch.zeros((1, 2), dtype=torch.int32), code, 1,
                     torch.zeros((1, 2, code.nstates // 32), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguous", "planes", "code"])
+def test_traceback_wrapper_checks_its_inputs(fault):
+    """viterbi_cuda.traceback refuses, before it picks kernel or plain
+    twin, a tape the kernel does not take."""
+    code = convert.code_spec(K15)
+    nbits, words = 6, code.nstates // 32
+    dec = torch.zeros((2, nbits, words), dtype=torch.int32)
+    match = {"dtype": "int32 planes", "contiguous": "contiguous",
+             "planes": "int32 planes", "code": "14 <= K <= 24"}[fault]
+    if fault == "dtype":
+        dec = dec.to(torch.int64)
+    elif fault == "contiguous":
+        dec = torch.zeros((nbits, 2, words), dtype=torch.int32).transpose(0, 1)
+    elif fault == "planes":
+        nbits += 1
+    else:
+        code = convert.code_spec(jcfg.CodeSpec("K13", 0o12345, 0o16543, 13))
+    with pytest.raises(ValueError, match=match):
+        tvc.traceback(dec, nbits, 0, code)
+
+
+@pytest.mark.parametrize("name,nbits", [("K15", 1), ("K15", 37), ("K18", 100)])
+def test_chainback_planes_per_lane_end_states(name, nbits):
+    """A (B,) tensor of end states traces each frame back from its own
+    state: the same bits as B single-frame calls with int end states (the
+    per-lane form the traceback kernel takes as a pointer)."""
+    code = convert.code_spec(CODES[name])
+    gen = torch.Generator().manual_seed(nbits)
+    dec = torch.randint(-2**31, 2**31, (3, nbits, code.nstates // 32),
+                        generator=gen, dtype=torch.int64).to(torch.int32)
+    ends = torch.randint(0, code.nstates, (3,), generator=gen)
+    got = tvf.chainback_planes(dec, nbits, ends, code)
+    for b in range(3):
+        assert torch.equal(got[b : b + 1], tvf.chainback_planes(
+            dec[b : b + 1], nbits, int(ends[b]), code))
+    assert _kernels.backend_used["traceback"] == "torch"
